@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels.
+
+The `.cu` sources under `csrc/` are compiled by `nvcc` for Hopper
+(`sm_90a`) into one shared library with a plain C interface, loaded with
+`ctypes`. The build runs on the first call of `library()`, never at import,
+into `build/visma_tpu_torch/<hash of sources and flags>/` at the root of the
+checkout (listed in `.gitignore`), so a changed source rebuilds and an
+unchanged one is loaded as it is.
+
+Each C entry point launches on the stream it is given, allocates nothing
+and returns the `cudaGetLastError()` code; `check` raises on a non-zero
+code.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+SOURCES = ("corner_score.cu", "lk_level.cu")
+BUILD_ROOT = _PKG.parent / "build" / "visma_tpu_torch"
+LIB_NAME = "libvisma_tpu_torch.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no fused multiply-add contraction: the kernels then round as the
+    # plain PyTorch versions do (see csrc/corner_score.cu)
+    "-fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # (img, out, H, W, border, min_response, stream)
+    "vt_corner_score": (_P, _P, _I, _I, _I, _F, _P),
+    # (imgT, imgI, H, W, orgT, orgI, stT, sI0, u, stat, K, win, radius,
+    #  iters, stream)
+    "vt_lk_level": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _P),
+}
+
+
+def nvcc_path() -> str:
+    """`$CUDA_HOME/bin/nvcc`, else `nvcc` on PATH; raises when neither
+    exists."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        return on_path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / _digest()
+
+
+def build() -> Path:
+    """Compile the library if this source hash has no build yet; returns
+    its path. The compiler's output (with `-Xptxas -v`: registers, shared
+    memory and spills of each kernel) goes to `build.log` beside it."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[str(CSRC / s) for s in SOURCES]]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (out_dir / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built library with argument types declared (builds on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of the current PyTorch stream on `t`'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{name}: tensors must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

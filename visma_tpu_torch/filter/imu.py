@@ -1,0 +1,144 @@
+"""Error-state IMU propagation (port of visma_tpu/filter/imu.py).
+
+`_step` is the single-sample reference. `propagate` batches every
+per-sample quantity like the reference (imu.py:79-161) but replaces its two
+`lax.associative_scan`s, a TPU latency device, by sequential folds over the
+S samples (S = 8 on the bench): the attitude prefix product and the
+(Phi, Q) composition. The fold associates left to right, the reference's
+scan as a tree, so the two agree to float32 association order only.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from visma_tpu_torch.filter.config import FilterConfig
+from visma_tpu_torch.filter.state import FilterState
+from visma_tpu_torch.geom.rotations import hat, rodrigues
+
+
+@functools.lru_cache(maxsize=8)
+def _gravity_vector(gravity: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, -gravity], dtype=torch.float32,
+                        device=device)
+
+
+def _gravity(cfg: FilterConfig, device) -> torch.Tensor:
+    """World gravity (0, 0, -g), made once per device."""
+    return _gravity_vector(cfg.gravity, device)
+
+
+def _eye(n: int, device) -> torch.Tensor:
+    return torch.eye(n, dtype=torch.float32, device=device)
+
+
+def _step(cfg: FilterConfig, state: FilterState, gyro, accel, dt):
+    """One IMU sample. dt may be 0 (masked sample), then it is a no-op."""
+    dev = state.P.device
+    w = gyro - state.bg
+    a = accel - state.ba
+    R = state.R
+    Ra = R @ a
+    a_w = Ra + _gravity(cfg, dev)
+
+    dR = rodrigues(w * dt)
+    R_new = R @ dR
+    v_new = state.v + a_w * dt
+    p_new = state.p + state.v * dt + 0.5 * a_w * dt * dt
+
+    D = cfg.dim
+    F = _eye(D, dev)
+    F[3:6, 6:9] = _eye(3, dev) * dt
+    F[6:9, 0:3] = -hat(Ra) * dt
+    F[6:9, 12:15] = -R * dt
+    F[0:3, 9:12] = -R * dt
+
+    Q = torch.zeros((D, D), dtype=torch.float32, device=dev)
+    Q[0:3, 0:3] = _eye(3, dev) * cfg.gyro_noise ** 2 * dt
+    Q[6:9, 6:9] = _eye(3, dev) * cfg.accel_noise ** 2 * dt
+    Q[9:12, 9:12] = _eye(3, dev) * cfg.gyro_bias_walk ** 2 * dt
+    Q[12:15, 12:15] = _eye(3, dev) * cfg.accel_bias_walk ** 2 * dt
+
+    P_new = F @ state.P @ F.T + Q
+    P_new = 0.5 * (P_new + P_new.T)
+    return state.replace(R=R_new, p=p_new, v=v_new, P=P_new,
+                         t=state.t + dt)
+
+
+def propagate_cv(cfg: FilterConfig, state: FilterState,
+                 dt: torch.Tensor) -> FilterState:
+    """Vision-only process model: constant velocity and attitude, biases
+    frozen (imu.py:58-76)."""
+    dev = state.P.device
+    D = cfg.dim
+    p_new = state.p + state.v * dt
+    F = _eye(D, dev)
+    F[3:6, 6:9] = _eye(3, dev) * dt
+    Q = torch.zeros((D, D), dtype=torch.float32, device=dev)
+    Q[0:3, 0:3] = _eye(3, dev) * cfg.cv_rot_noise ** 2 * dt
+    Q[6:9, 6:9] = _eye(3, dev) * cfg.cv_vel_noise ** 2 * dt
+    P_new = F @ state.P @ F.T + Q
+    P_new = 0.5 * (P_new + P_new.T)
+    return state.replace(p=p_new, P=P_new, t=state.t + dt)
+
+
+def propagate(cfg: FilterConfig, state: FilterState, gyro: torch.Tensor,
+              accel: torch.Tensor, dts: torch.Tensor) -> FilterState:
+    """Propagate over a fixed-size IMU batch; masked samples carry dt == 0.
+
+    gyro/accel (S, 3); dts (S,) with 0 for padding slots.
+    """
+    dev = state.P.device
+    S = dts.shape[0]
+    dt = dts[:, None]
+
+    w = gyro - state.bg
+    a = accel - state.ba
+    dR = rodrigues(w * dt)                                # (S,3,3)
+
+    # attitude prefix products (dt = 0 gives dR = I)
+    cum = [dR[0]]
+    for k in range(1, S):
+        cum.append(cum[-1] @ dR[k])
+    R_after = state.R @ torch.stack(cum)                  # (S,3,3)
+    R_pre = torch.cat([state.R[None], R_after[:-1]], dim=0)
+
+    Ra = torch.einsum("sij,sj->si", R_pre, a)
+    a_w = Ra + _gravity(cfg, dev)
+    dv = a_w * dt
+    v_after = state.v + torch.cumsum(dv, dim=0)
+    v_pre = v_after - dv
+    p = state.p + torch.sum(v_pre * dt + 0.5 * a_w * dt * dt, dim=0)
+    t = state.t + torch.sum(dts)
+
+    # batched error-state transitions of the 15-dim IMU block
+    I3 = _eye(3, dev)
+    F = _eye(15, dev).repeat(S, 1, 1)
+    Rdt = R_pre * dt[..., None]
+    F[:, 3:6, 6:9] = I3 * dt[..., None]
+    F[:, 6:9, 0:3] = -hat(Ra) * dt[..., None]
+    F[:, 6:9, 12:15] = -Rdt
+    F[:, 0:3, 9:12] = -Rdt
+
+    Qd = torch.zeros((S, 15), dtype=torch.float32, device=dev)
+    Qd[:, 0:3] = cfg.gyro_noise ** 2 * dt
+    Qd[:, 6:9] = cfg.accel_noise ** 2 * dt
+    Qd[:, 9:12] = cfg.gyro_bias_walk ** 2 * dt
+    Qd[:, 12:15] = cfg.accel_bias_walk ** 2 * dt
+    Qk = torch.diag_embed(Qd)                             # (S,15,15)
+
+    # (Phi_b, Q_b) o (Phi_a, Q_a) = (Phi_b Phi_a, Phi_b Q_a Phi_b^T + Q_b)
+    Phi, Q15 = F[0], Qk[0]
+    for k in range(1, S):
+        Phi, Q15 = F[k] @ Phi, F[k] @ Q15 @ F[k].T + Qk[k]
+
+    P = state.P
+    top = Phi @ P[:15, :]
+    Pn = torch.cat([top, P[15:, :]], dim=0)
+    left = Pn[:, :15] @ Phi.T
+    Pn = torch.cat([left, Pn[:, 15:]], dim=1)
+    Pn = torch.cat([torch.cat([Pn[:15, :15] + Q15, Pn[:15, 15:]], dim=1),
+                    Pn[15:, :]], dim=0)
+    Pn = 0.5 * (Pn + Pn.T)
+    return state.replace(R=R_after[-1], p=p, v=v_after[-1], P=Pn, t=t)

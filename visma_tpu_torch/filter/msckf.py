@@ -1,0 +1,309 @@
+"""MSCKF orchestration (port of visma_tpu/filter/msckf.py).
+
+`_frame_step` is the per-frame step (propagate -> clone -> ingest tracks ->
+update); `Msckf.run` runs it over a packed sequence in a Python loop, the
+counterpart of the reference's `lax.scan`. Nothing in a step reads a value
+back to the host, so a run on the GPU queues frames without waiting.
+
+Parity notes (each pinned in tests/test_torch_filter.py):
+  * `jnp.argmax` takes the first maximum (msckf.py:49,153): bool masks are
+    cast to int before `torch.argmax`, which also returns the first.
+  * `.at[].max` scatters (msckf.py:170-172) are
+    `scatter_reduce("amax", include_self=True)`.
+  * `lax.top_k` (msckf.py:228) returns ties lowest index first: a stable
+    descending sort does the same.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from visma_tpu.proto import FeatureStatus
+from visma_tpu_torch.filter.config import FilterConfig
+from visma_tpu_torch.filter.imu import propagate, propagate_cv
+from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
+from visma_tpu_torch.filter.update import msckf_update
+from visma_tpu_torch.geom.rotations import hat, rodrigues
+from visma_tpu_torch.utils.misc import DivergenceError, finite_tree
+
+_EMPTY = int(FeatureStatus.EMPTY)
+_INITIALIZING = int(FeatureStatus.INITIALIZING)
+_READY = int(FeatureStatus.READY)
+_INSTATE = int(FeatureStatus.INSTATE)
+_KEEP = int(FeatureStatus.KEEP)
+_GOODDROP = int(FeatureStatus.GOODDROP)
+_REJECT = int(FeatureStatus.REJECT)
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """`lax.top_k` over the last axis: values descending, ties lowest index
+    first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def scatter_max(n: int, index: torch.Tensor, src: torch.Tensor):
+    """`zeros(n).at[index].max(src)` for int32 src (msckf.py:170-172)."""
+    out = torch.zeros(n, dtype=src.dtype, device=src.device)
+    return out.scatter_reduce(0, index.long(), src, "amax", include_self=True)
+
+
+def check_health(outs: Dict[str, torch.Tensor]) -> None:
+    """Host-side gate on Msckf.run / VioPipeline.run outputs: raise a
+    DivergenceError naming the FIRST non-finite frame."""
+    healthy = outs.get("healthy")
+    healthy = (np.asarray(True) if healthy is None
+               else np.asarray(torch.as_tensor(healthy).cpu()))
+    if healthy.all():
+        return
+    raise DivergenceError(int(np.argmin(healthy)))
+
+
+def _frame_outputs(cfg: FilterConfig, s: FilterState) -> Dict[str, torch.Tensor]:
+    """Per-frame export record: pose, track-table snapshot (feat_xp is the
+    newest observed pixel) and the health flag (msckf.py:36-67)."""
+    tracks = s.tracks
+    M = tracks.obs.shape[1]
+    K = tracks.ids.shape[0]
+    last = M - 1 - torch.argmax(tracks.mask.flip(1).to(torch.int32), dim=1)
+    seen = torch.any(tracks.mask, dim=1)
+    xp_last = torch.where(
+        seen[:, None],
+        tracks.obs[torch.arange(K, device=last.device), last],
+        torch.zeros((), dtype=torch.float32, device=last.device))
+    out = {
+        "R": s.R, "p": s.p, "v": s.v,
+        "feat_status": tracks.status,
+        "feat_ids": tracks.ids,
+        "feat_xw": tracks.xw,
+        "feat_xp": xp_last,
+        "healthy": finite_tree((s.R, s.p, s.v, s.bg, s.ba, s.P)),
+    }
+    return out
+
+
+def _augment(cfg: FilterConfig, state: FilterState,
+             omega=None) -> FilterState:
+    """Roll the clone window left and clone the current camera pose into
+    slot M-1 (msckf.py:70-132)."""
+    M, D = cfg.window, cfg.dim
+    dev = state.P.device
+    R_bc, p_bc, td = state.R_bc, state.p_bc, state.td
+    if omega is None:
+        omega = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    R_b = rodrigues(state.R @ omega * td) @ state.R
+    p_b = state.p + state.v * td
+    cam_R = R_b @ R_bc
+    cam_p = p_b + R_b @ p_bc
+    win_R = torch.cat([state.win_R[1:], cam_R[None]], dim=0)
+    win_p = torch.cat([state.win_p[1:], cam_p[None]], dim=0)
+    win_valid = torch.cat([state.win_valid[1:],
+                           torch.ones(1, dtype=torch.bool, device=dev)])
+
+    # new index -> old index: clones shift left, the new clone duplicates
+    # the IMU attitude/position error, the calibration tail stays put
+    perm = torch.cat([torch.arange(15, device=dev),
+                      torch.arange(21, 15 + 6 * M, device=dev),
+                      torch.arange(0, 6, device=dev),
+                      torch.arange(15 + 6 * M, D, device=dev)])
+    P = state.P[perm][:, perm]
+
+    if cfg.has_extrinsics or cfg.estimate_extrinsics or cfg.estimate_td:
+        ra = 15 + 6 * (M - 1)
+        rp = ra + 3
+        J = torch.eye(D, dtype=torch.float32, device=dev)
+        J[rp:rp + 3, ra:ra + 3] = -hat(state.R @ p_bc)
+        if cfg.estimate_extrinsics:
+            c = cfg.ext_idx
+            J[ra:ra + 3, c:c + 3] = cam_R
+            J[rp:rp + 3, c + 3:c + 6] = state.R
+        if cfg.estimate_td:
+            c = cfg.td_idx
+            J[ra:ra + 3, c] = state.R @ omega
+            J[rp:rp + 3, c] = state.v + state.R @ torch.linalg.cross(omega,
+                                                                     p_bc)
+        P = J @ P @ J.T
+    P = 0.5 * (P + P.T)
+    return state.replace(win_R=win_R, win_p=win_p, win_valid=win_valid, P=P)
+
+
+def _ingest(cfg: FilterConfig, tracks: TrackTable, ids, xp, valid):
+    """Roll track observations with the window and ingest this frame's
+    observations ids (F,), xp (F, 2), valid (F,) (msckf.py:135-215).
+
+    Returns (tracks, lost (K,) bool)."""
+    K, M = tracks.obs.shape[0], tracks.obs.shape[1]
+    F = ids.shape[0]
+    dev = ids.device
+    i32 = torch.int32
+
+    obs = torch.cat([tracks.obs[:, 1:], torch.zeros((K, 1, 2), device=dev)],
+                    dim=1)
+    mask = torch.cat([tracks.mask[:, 1:],
+                      torch.zeros((K, 1), dtype=torch.bool, device=dev)],
+                     dim=1)
+
+    slot_live = tracks.ids >= 0
+    eq = (tracks.ids[:, None] == ids[None, :]) & valid[None, :] \
+        & slot_live[:, None]
+    has_match = torch.any(eq, dim=1)
+    match_idx = torch.argmax(eq.to(i32), dim=1)
+    matched_xp = xp[match_idx]
+    obs[:, M - 1] = torch.where(has_match[:, None], matched_xp,
+                                torch.zeros_like(matched_xp))
+    mask[:, M - 1] = has_match
+
+    # new features fill empty slots by rank pairing
+    known = torch.any(eq, dim=0)
+    is_new = valid & ~known
+    new_rank = torch.cumsum(is_new.to(i32), dim=0, dtype=i32) - 1
+    empty = ~slot_live
+    empty_rank = torch.cumsum(empty.to(i32), dim=0, dtype=i32) - 1
+    n_new = torch.sum(is_new, dtype=i32)
+    take = empty & (empty_rank < n_new)
+    feat_for_rank = scatter_max(
+        F, torch.where(is_new, new_rank, torch.full_like(new_rank, F - 1)),
+        torch.arange(F, dtype=i32, device=dev) * is_new.to(i32))
+    src = feat_for_rank[torch.clamp(empty_rank, 0, F - 1).long()]
+
+    ids_new = torch.where(take, ids[src], tracks.ids)
+    fresh_obs = torch.zeros_like(obs)
+    fresh_obs[:, M - 1] = xp[src]
+    obs = torch.where(take[:, None, None], fresh_obs, obs)
+    fresh_mask = torch.zeros_like(mask)
+    fresh_mask[:, M - 1] = True
+    mask = torch.where(take[:, None], fresh_mask, mask)
+    xw = torch.where(take[:, None], torch.zeros_like(tracks.xw), tracks.xw)
+
+    nobs = torch.sum(mask, dim=1, dtype=i32)
+    live = ids_new >= 0
+    lost = live & ~mask[:, M - 1] & (nobs > 0)
+
+    def c(v):
+        return torch.full((K,), v, dtype=i32, device=dev)
+
+    drop_status = torch.where(nobs >= cfg.min_track_obs, c(_GOODDROP),
+                              c(_REJECT))
+    has_xw = torch.any(xw != 0.0, dim=1)
+    status = torch.where(
+        ~live, c(_EMPTY),
+        torch.where(lost, drop_status,
+                    torch.where(nobs <= 1, c(_INITIALIZING),
+                                torch.where(has_xw, c(_INSTATE),
+                                            c(_READY)))))
+
+    expired = live & (nobs == 0)
+    ids_new = torch.where(expired, torch.full_like(ids_new, -1), ids_new)
+    status = torch.where(expired, c(_EMPTY), status)
+    return TrackTable(ids=ids_new, status=status, obs=obs, mask=mask,
+                      xw=xw), lost
+
+
+def _select_for_update(cfg: FilterConfig, tracks: TrackTable, lost):
+    """Up to max_updates mature features, lost tracks first, then
+    full-window tracks. Returns (sel (U,) slot indices, sel_valid (U,))."""
+    M = tracks.obs.shape[1]
+    i32 = torch.int32
+    nobs = torch.sum(tracks.mask, dim=1, dtype=i32)
+    live = tracks.ids >= 0
+    mature = live & (nobs >= cfg.min_track_obs)
+    full = mature & (nobs >= M)
+    eligible = mature & (lost | full)
+    score = eligible.to(i32) * (1000 + nobs + 1000 * lost.to(i32))
+    top, sel = top_k_stable(score, cfg.max_updates)
+    return sel, top > 0
+
+
+class Msckf:
+    """Facade: per-frame step + sequence runner."""
+
+    def __init__(self, cfg: FilterConfig, device=None):
+        self.cfg = cfg
+        self.device = torch.device("cpu" if device is None else device)
+
+    def init(self, **kw) -> FilterState:
+        return init_state(self.cfg, device=self.device, **kw)
+
+    def step(self, state: FilterState, frame: Dict[str, torch.Tensor]
+             ) -> FilterState:
+        """frame: {gyro (S,3), accel (S,3), dts (S,), ids (F,), xp (F,2),
+        valid (F,)}."""
+        return _frame_step(self.cfg, state, frame)
+
+    def run(self, state: FilterState, frames: Dict[str, torch.Tensor]):
+        """Step over a packed sequence (leading axis = frames). Returns
+        (final_state, outputs) with every `_frame_outputs` key stacked
+        over frames."""
+        N = next(iter(frames.values())).shape[0]
+        outs = []
+        for i in range(N):
+            state = _frame_step(self.cfg, state,
+                                {k: v[i] for k, v in frames.items()})
+            outs.append(_frame_outputs(self.cfg, state))
+        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _frame_step(cfg: FilterConfig, state: FilterState,
+                frame: Dict[str, torch.Tensor]) -> FilterState:
+    """One frame (msckf.py:319-417)."""
+    if cfg.num_slam:
+        raise NotImplementedError(
+            "SLAM landmarks (num_slam > 0) are not ported yet")
+    i32 = torch.int32
+    # 1. propagation to the frame time
+    if cfg.use_imu:
+        state = propagate(cfg, state, frame["gyro"], frame["accel"],
+                          frame["dts"])
+        # body rate at the frame (bias-corrected last unmasked sample)
+        n = torch.sum(frame["dts"] > 0, dtype=i32)
+        idx = torch.clamp(n - 1, 0, frame["gyro"].shape[0] - 1)
+        omega = (frame["gyro"][idx] - state.bg) * (n > 0)
+    else:
+        state = propagate_cv(cfg, state, torch.sum(frame["dts"]))
+        omega = None
+    # 2. clone the camera pose into the window
+    state = _augment(cfg, state, omega)
+    # 3. ingest feature observations
+    tracks, lost = _ingest(cfg, state.tracks, frame["ids"], frame["xp"],
+                           frame["valid"])
+    state = state.replace(tracks=tracks)
+    # 4. MSCKF update on mature tracks
+    sel, sel_valid = _select_for_update(cfg, tracks, lost)
+    sel_obs = tracks.obs[sel]
+    sel_mask = tracks.mask[sel]
+    state, used, rejected, X = msckf_update(cfg, state, sel_obs, sel_mask,
+                                            sel_valid)
+    # record triangulated points; retire consumed observations (see the
+    # reference, msckf.py:357-417, for the lifecycle rules)
+    M = cfg.window
+    old = state.tracks
+    xw = old.xw.clone()
+    xw[sel] = torch.where(used[:, None], X, old.xw[sel])
+    sel_mask_now = old.mask[sel]
+    still_seen = sel_mask_now[:, M - 1]
+    keep = used & still_seen
+    drop = used & ~still_seen
+
+    newest_only = torch.zeros_like(sel_mask_now)
+    newest_only[:, M - 1] = True
+    new_sel_mask = torch.where(
+        keep[:, None], sel_mask_now & newest_only,
+        torch.where((drop | rejected)[:, None],
+                    torch.zeros_like(sel_mask_now), sel_mask_now))
+
+    def c(v):
+        return torch.full_like(sel, v, dtype=i32)
+
+    status = old.status.clone()
+    status[sel] = torch.where(
+        drop, c(_GOODDROP),
+        torch.where(rejected, c(_REJECT),
+                    torch.where(keep, c(_KEEP), old.status[sel])))
+    mask = old.mask.clone()
+    mask[sel] = new_sel_mask
+    tracks = TrackTable(ids=old.ids, status=status, obs=old.obs, mask=mask,
+                        xw=xw)
+    return state.replace(tracks=tracks)

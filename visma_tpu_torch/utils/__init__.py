@@ -1,0 +1,5 @@
+"""Utilities for the VIO slice (port of visma_tpu/utils)."""
+
+from visma_tpu_torch.utils.misc import DivergenceError, finite_tree
+
+__all__ = ["DivergenceError", "finite_tree"]

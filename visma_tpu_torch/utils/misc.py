@@ -1,0 +1,38 @@
+"""Health-gate utilities (port of visma_tpu/utils/misc.py:31-57)."""
+from __future__ import annotations
+
+import torch
+
+
+def _float_leaves(x):
+    if isinstance(x, torch.Tensor):
+        if x.is_floating_point():
+            yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _float_leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _float_leaves(v)
+
+
+def finite_tree(x) -> torch.Tensor:
+    """All-finite reduction over the float tensors of a nested tuple / list /
+    dict: one 0-d bool tensor on the tensors' device, computed without a
+    host sync."""
+    flags = [torch.isfinite(leaf).all() for leaf in _float_leaves(x)]
+    if not flags:
+        return torch.tensor(True)
+    return torch.stack(flags).all()
+
+
+class DivergenceError(RuntimeError):
+    """Filter state went non-finite. Carries the first bad frame index so
+    callers can recover from the last healthy checkpoint instead of
+    exporting NaN poses."""
+
+    def __init__(self, frame: int, detail: str = ""):
+        self.frame = int(frame)
+        super().__init__(
+            f"filter state non-finite at frame {frame}"
+            + (f" ({detail})" if detail else ""))
