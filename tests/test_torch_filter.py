@@ -308,7 +308,7 @@ class TestEndToEnd:
             jo.append((np.asarray(js.p), np.asarray(js.tracks.ids),
                        np.asarray(js.tracks.status)))
         jp, jids, jstatus = (np.stack(x) for x in zip(*jo))
-        tk = tmsckf.Msckf(scene.tcfg)
+        tk = tmsckf.Msckf(scene.tcfg, device="cpu")
         final, to = tk.run(tk.init(**scene.init),
                            {k: _t(v) for k, v in scene.frames.items()})
         tmsckf.check_health(to)

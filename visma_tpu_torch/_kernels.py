@@ -26,7 +26,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("corner_score.cu", "lk_level.cu")
+SOURCES = ("corner_score.cu", "lk_level.cu", "chunk_raster.cu",
+           "depth_edge.cu")
 BUILD_ROOT = _PKG.parent / "build" / "visma_tpu_torch"
 LIB_NAME = "libvisma_tpu_torch.so"
 NVCC_FLAGS = (
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
     # plain PyTorch versions do (see csrc/corner_score.cu)
     "-fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +49,12 @@ _SIGNATURES = {
     #  iters, stream)
     "vt_lk_level": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P),
+    # (planes, ids, counts, out, nc, H, W, inv_near, inv_far, stream)
+    "vt_chunk_raster_frame": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    # (planes, ids, counts, out, B, nc, H, W, inv_near, inv_far, stream)
+    "vt_chunk_raster_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # (depth, out, B, H, W, lo, range, border, stream)
+    "vt_depth_edge": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
 }
 
 
@@ -84,21 +91,38 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    objs = [out_dir / f"{Path(s).stem}.{os.getpid()}.o" for s in SOURCES]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
+    log = []
+
+    def finish(cmd, returncode, output):
+        log.append(" ".join(cmd) + "\n" + output)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if returncode != 0:
+            raise RuntimeError(f"nvcc failed ({returncode}):\n"
+                               + "\n".join(log))
+
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        # one nvcc per source, all started together, then one link
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outputs = [p.communicate()[0] for p in procs]
+        for c, p, o in zip(cmds, procs, outputs):
+            finish(c, p.returncode, o)
+        link = [nvcc, "-shared", "-o", tmp, *map(str, objs)]
+        done = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        finish(link, done.returncode, done.stdout)
         os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for f in (tmp, *objs):
+            if os.path.exists(f):
+                os.remove(f)
     return lib
 
 

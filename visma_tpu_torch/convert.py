@@ -6,7 +6,12 @@ leaves are numpy arrays (for example `jax.tree.map(np.asarray, state)`),
 or a nested dict with the same field names, into the port's state on a
 device. `to_numpy` turns a port state back into nested dicts of numpy
 arrays with the reference's field names, from which the reference's
-dataclasses can be rebuilt. Neither direction imports jax.
+dataclasses can be rebuilt. For the semantic path,
+`renderer_from_reference` / `renderer_to_numpy` carry a
+`MultiMeshRenderer`'s camera and padded mesh stack (`Vs`, `Fs`, `Cs`,
+names), and `tracks_from_reference` / `tracks_to_numpy` a mapper's object
+tracks (poses, ages, scores). Neither direction imports jax: a reference
+array crosses as `numpy.asarray` of it.
 """
 from __future__ import annotations
 
@@ -19,6 +24,9 @@ import torch
 from visma_tpu_torch.filter.state import FilterState, TrackTable
 from visma_tpu_torch.frontend.tracker import TrackerState
 from visma_tpu_torch.pipeline import PipelineState
+from visma_tpu_torch.render.camera import Intrinsics
+from visma_tpu_torch.render.raster import MultiMeshRenderer
+from visma_tpu_torch.semantic.mapper import ObjectTrack
 
 _NESTED = {"tracks": TrackTable, "tracker": TrackerState,
            "filter": FilterState}
@@ -59,4 +67,58 @@ def to_numpy(state) -> dict:
     return out
 
 
-__all__ = ["from_reference", "to_numpy"]
+def renderer_from_reference(ref: Any, device=None) -> MultiMeshRenderer:
+    """The port's MultiMeshRenderer from a reference one (or a dict with
+    `intr`, `names`, `Vs`, `Fs`): the same camera and the same padded,
+    Morton-sorted stack, so mesh indices mean the same on both sides. The
+    face corners are rebuilt from Vs and Fs. device: as for
+    MultiMeshRenderer (None means the CUDA card)."""
+    intr = _field(ref, "intr")
+    intr = Intrinsics(**{f.name: _field(intr, f.name)
+                         for f in dataclasses.fields(Intrinsics)})
+    out = MultiMeshRenderer(intr, device=device)
+    out.set_stack(np.asarray(_field(ref, "Vs")), np.asarray(_field(ref, "Fs")),
+                  names=_field(ref, "names"))
+    return out
+
+
+def renderer_to_numpy(mr: MultiMeshRenderer) -> dict:
+    """A port MultiMeshRenderer as a dict of its camera fields, names and
+    numpy stack, from which the reference's can be filled (`Vs`, `Fs`,
+    `Cs` are its attributes of the same names)."""
+    return {"intr": dataclasses.asdict(mr.intr), "names": list(mr.names),
+            "Vs": mr.Vs.cpu().numpy(), "Fs": mr.Fs.cpu().numpy(),
+            "Cs": mr.Cs.cpu().numpy()}
+
+
+_TRACK_FIELDS = tuple(f.name for f in dataclasses.fields(ObjectTrack))
+
+
+def tracks_from_reference(tracks) -> dict:
+    """A mapper's tracks ({oid: track} or an iterable of tracks, each an
+    object or dict with oid, model_name, pose_wm, score, age, status) as
+    the port's {oid: ObjectTrack}. Poses stay float64 numpy, as the
+    mapper keeps its host mirror."""
+    items = tracks.values() if isinstance(tracks, dict) else tracks
+    out = {}
+    for t in items:
+        tr = ObjectTrack(oid=int(_field(t, "oid")),
+                         model_name=str(_field(t, "model_name")),
+                         pose_wm=np.array(_field(t, "pose_wm"), np.float64),
+                         score=float(_field(t, "score")),
+                         age=int(_field(t, "age")),
+                         status=int(_field(t, "status")))
+        out[tr.oid] = tr
+    return out
+
+
+def tracks_to_numpy(tracks) -> list:
+    """The port's tracks as a list of dicts with the reference's field
+    names, in oid order."""
+    return [{k: (np.array(getattr(t, k)) if k == "pose_wm"
+                 else getattr(t, k)) for k in _TRACK_FIELDS}
+            for _, t in sorted(tracks.items())]
+
+
+__all__ = ["from_reference", "to_numpy", "renderer_from_reference",
+           "renderer_to_numpy", "tracks_from_reference", "tracks_to_numpy"]

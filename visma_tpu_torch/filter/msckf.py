@@ -20,13 +20,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from visma_tpu.proto import FeatureStatus
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.imu import propagate, propagate_cv
 from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
 from visma_tpu_torch.filter.update import msckf_update
 from visma_tpu_torch.geom.rotations import hat, rodrigues
-from visma_tpu_torch.utils.misc import DivergenceError, finite_tree
+from visma_tpu_torch.proto import FeatureStatus
+from visma_tpu_torch.utils.misc import (DivergenceError, finite_tree,
+                                        resolve_device)
 
 _EMPTY = int(FeatureStatus.EMPTY)
 _INITIALIZING = int(FeatureStatus.INITIALIZING)
@@ -222,7 +223,7 @@ class Msckf:
 
     def __init__(self, cfg: FilterConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
 
     def init(self, **kw) -> FilterState:
         return init_state(self.cfg, device=self.device, **kw)

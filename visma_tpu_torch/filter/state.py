@@ -10,7 +10,7 @@ from dataclasses import dataclass, replace as _replace
 
 import torch
 
-from visma_tpu.proto import FeatureStatus
+from visma_tpu_torch.proto import FeatureStatus
 from visma_tpu_torch.filter.config import FilterConfig
 
 

@@ -1,7 +1,8 @@
-"""Rotation maps used by the VIO slice (port of visma_tpu/geom/rotations.py).
+"""Rotation maps (port of visma_tpu/geom/rotations.py).
 
-Only what the filter needs: `hat`, `vee`, `_safe_norm` and `rodrigues`
-(rotations.py:40-150). The reference's HIGHEST-precision helpers `mm` /
+What the filter and the SE(3) types need: `hat`, `vee`, `_safe_norm`,
+`rodrigues` (rotations.py:40-150) and the log map `invrodrigues`
+(rotations.py:182-198). The reference's HIGHEST-precision helpers `mm` /
 `einsum_hp` become plain float32 `@` / `torch.einsum`: on the GPU a float32
 matmul stays float32 as long as TF32 is off, which this module enforces.
 """
@@ -15,6 +16,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 SMALL_ANGLE = 1e-6
+SMALL_TRACE = 1e-8
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -52,3 +54,14 @@ def rodrigues(w: torch.Tensor) -> torch.Tensor:
                         (1.0 - torch.cos(th)) / (th * th))
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + sin_c[..., None, None] * W + cos_c[..., None, None] * W2
+
+
+def invrodrigues(R: torch.Tensor) -> torch.Tensor:
+    """Log map: rotation matrix (...,3,3) -> axis-angle (...,3), accurate
+    away from an angle of pi (rotations.py:182-198)."""
+    tmp = 0.5 * (torch.diagonal(R, dim1=-2, dim2=-1).sum(-1) - 1.0)
+    is_small = tmp > 1.0 - SMALL_TRACE
+    th = torch.acos(torch.clamp(tmp, -1.0 + 1e-7, 1.0 - 1e-7))
+    coef = torch.where(is_small, torch.full_like(th, 0.5),
+                       0.5 * th / torch.sin(th))
+    return coef[..., None] * vee(R)

@@ -1,6 +1,9 @@
-"""Image stencils for the VIO slice (port of part of visma_tpu/image)."""
+"""Image stencils (port of part of visma_tpu/image)."""
 
-from visma_tpu_torch.image.edges import (shi_tomasi_response,
-                                         sobel_gradients)
+from visma_tpu_torch.image.edges import (depth_edge, depth_edge_plain,
+                                         linearize_gl_depth,
+                                         shi_tomasi_response,
+                                         sobel_gradients, soft_threshold)
 
-__all__ = ["shi_tomasi_response", "sobel_gradients"]
+__all__ = ["depth_edge", "depth_edge_plain", "linearize_gl_depth",
+           "shi_tomasi_response", "sobel_gradients", "soft_threshold"]

@@ -19,6 +19,7 @@ from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.msckf import Msckf, _frame_outputs, _frame_step
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.frontend.tracker import FeatureTracker, TrackerState
+from visma_tpu_torch.utils.misc import resolve_device
 
 
 @dataclass(frozen=True)
@@ -31,7 +32,7 @@ class VioPipeline:
     def __init__(self, cfg: FilterConfig, levels: int = 3, cell: int = 16,
                  klt_radius: int = 5, device=None):
         self.cfg = cfg
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
                                       cell=cell)
@@ -91,7 +92,7 @@ def export_packets(cfg: FilterConfig, outs: Dict[str, torch.Tensor],
     """Convert Msckf.run / VioPipeline.run outputs into vlslam Packets with
     the reference wire conventions (pipeline.py:121-149): row-major 3x4 gwc,
     zero wg, Feature.xp the track's last observed pixel."""
-    from visma_tpu.proto import Feature, FeatureStatus, Packet
+    from visma_tpu_torch.proto import Feature, FeatureStatus, Packet
 
     def host(x):
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

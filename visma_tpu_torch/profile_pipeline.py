@@ -21,8 +21,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from visma_tpu.io.synthetic import SyntheticConfig, make_imu
-from visma_tpu.io.synthetic_images import render_adversarial_frames
+from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
+from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.pipeline import VioPipeline
 

@@ -1,7 +1,21 @@
-"""Health-gate utilities (port of visma_tpu/utils/misc.py:31-57)."""
+"""Health-gate utilities (port of visma_tpu/utils/misc.py:31-57) and the
+port's device rule."""
 from __future__ import annotations
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point of the port runs on: the one asked for,
+    else the CUDA card. Raises when a CUDA device is wanted and none
+    exists; nothing carries on on the CPU unless `device="cpu"` was
+    passed."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "visma_tpu_torch runs on a CUDA device and none is available; "
+            "pass device=\"cpu\" to run on the CPU")
+    return dev
 
 
 def _float_leaves(x):
