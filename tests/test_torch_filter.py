@@ -10,7 +10,6 @@ import torch
 from visma_tpu.filter import FilterConfig as JConfig, Msckf as JMsckf
 from visma_tpu.filter import imu as jimu, msckf as jmsckf
 from visma_tpu.filter import triangulate as jtri, update as jupd
-from visma_tpu.filter.feed import pack_frames
 from visma_tpu.filter.state import FilterState as JFilterState
 from visma_tpu.filter.state import TrackTable as JTrackTable
 from visma_tpu.geom import rotations as jrot
@@ -21,6 +20,7 @@ from visma_tpu_torch import convert
 from visma_tpu_torch.filter import imu as timu, msckf as tmsckf
 from visma_tpu_torch.filter import triangulate as ttri, update as tupd
 from visma_tpu_torch.filter.config import FilterConfig
+from visma_tpu_torch.filter.feed import pack_frames
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.geom import rotations as trot
 
@@ -57,7 +57,7 @@ class _Scene:
                   fy=syn.fy, cx=syn.cx, cy=syn.cy, pixel_noise=max(noise, 0.5))
         self.jcfg, self.tcfg = JConfig(**kw), FilterConfig(**kw)
         imu = make_imu(syn)
-        frames = pack_frames(self.jcfg, make_dataset(syn), imu, max_feats=96)
+        frames = pack_frames(self.tcfg, make_dataset(syn), imu, max_feats=96)
         self.frames = {k: v for k, v in frames.items() if k != "ts"}
         _, self.gwc = make_trajectory(syn)
         self.init = dict(R0=self.gwc[0, :, :3], p0=self.gwc[0, :, 3],

@@ -11,11 +11,12 @@ import torch
 
 import visma_tpu.frontend.klt_fused as JKF
 import visma_tpu.frontend.tracker as JTR
+from visma_tpu.frontend import klt as JK
 from visma_tpu.frontend.detect import (_corner_score_xla, corner_score_pallas,
                                        detect_features as j_detect)
 from visma_tpu.frontend.pyramid import build_pyramid as j_pyramid
 
-from visma_tpu_torch.frontend import detect as tdet, klt_fused as tkf
+from visma_tpu_torch.frontend import detect as tdet, klt as tk, klt_fused as tkf
 from visma_tpu_torch.frontend.pyramid import build_pyramid
 from visma_tpu_torch.frontend.tracker import FeatureTracker, occupied_cells
 
@@ -207,6 +208,49 @@ class TestLkLevel:
         np.testing.assert_allclose(_np(nt), np.asarray(nj), atol=1e-4)
 
 
+class TestKltWindowed:
+    """The windowed tracker (frontend/klt.py), plain PyTorch on both the CPU
+    and the card: direct indexing in place of the reference's one-hot
+    selection matmuls."""
+
+    @pytest.mark.parametrize("name", ["track_features",
+                                      "track_features_gather"])
+    @pytest.mark.parametrize("shift", [(3.4, -2.1), (9.5, 6.0)])
+    def test_matches_jax(self, name, shift):
+        """3 levels + forward-backward against the reference's function of
+        the same name: positions to 1e-4 px (measured 1.5e-5), ok equal."""
+        img0 = textured_image(seed=2)
+        img1 = shift_image(img0, *shift)
+        xy, _, valid = j_detect(jnp.asarray(img0), 24, cell=16,
+                                use_pallas=False)
+        nj, okj = getattr(JK, name)(
+            tuple(j_pyramid(jnp.asarray(img0), 3)),
+            tuple(j_pyramid(jnp.asarray(img1), 3)), xy, valid)
+        nt, okt = getattr(tk, name)(
+            tuple(build_pyramid(_t(img0), 3)), tuple(build_pyramid(_t(img1), 3)),
+            _t(xy), _t(valid))
+        np.testing.assert_array_equal(_np(okt), np.asarray(okj))
+        assert np.asarray(okj).sum() >= 8
+        np.testing.assert_allclose(_np(nt), np.asarray(nj), atol=1e-4)
+
+    def test_window_origins_round_half_to_even(self):
+        """round(centre) - win//2 clipped to the image, as
+        klt.py::_extract_windows; centres on .5 round to even."""
+        img = jnp.zeros((64, 80))
+        c = np.array([[10.5, 11.5], [0.2, 63.9], [79.0, 30.49], [39.5, 40.5]],
+                     np.float32)
+        _, org = JK._extract_windows(img, jnp.asarray(c), 24)
+        np.testing.assert_array_equal(
+            _np(tk._extract_origins(_t(c), 24, 64, 80)), np.asarray(org))
+
+    def test_small_window_raises(self):
+        pyr = (torch.zeros(16, 16), torch.zeros(8, 8))
+        pts = torch.full((2, 2), 6.0)
+        with pytest.raises(ValueError, match="too small"):
+            tk.track_features(pyr, pyr, pts, torch.ones(2, dtype=torch.bool),
+                              levels=2)
+
+
 class TestTracker:
     def test_occupied_duplicates_last_slot_wins(self):
         """`zeros.at[cy, cx].set(ok)` with duplicate cells, as JAX on the
@@ -219,6 +263,24 @@ class TestTracker:
         ref = jnp.zeros((3, 4), bool).at[cy, cx].set(ok, mode="drop")
         got = occupied_cells(_t(pos), _t(ok), 16, 3, 4)
         np.testing.assert_array_equal(_np(got), np.asarray(ref))
+
+    def test_windowed_steps_match_jax(self):
+        """fused=False on both sides: the windowed tracker, the reference's
+        default off the TPU. ids and validity equal per frame, positions
+        to 1e-4 px."""
+        img = textured_image(seed=3)
+        jt = JTR.FeatureTracker(max_features=24, cell=16, fused=False)
+        tt = FeatureTracker(max_features=24, cell=16, fused=False)
+        assert not tt.fused and FeatureTracker().fused \
+            and FeatureTracker(fused=True).fused
+        js, ts = jt.init(jnp.asarray(img)), tt.init(_t(img))
+        for k in range(3):
+            img = shift_image(img, 3.0, -2.0)
+            js, idj, xpj, vj = jt.step(js, jnp.asarray(img))
+            ts, idt, xpt, vt = tt.step(ts, _t(img))
+            np.testing.assert_array_equal(_np(idt), np.asarray(idj))
+            np.testing.assert_array_equal(_np(vt), np.asarray(vj))
+            np.testing.assert_allclose(_np(xpt), np.asarray(xpj), atol=1e-4)
 
     def test_steps_match_jax(self, interpret_tracker):
         """init + 3 steps of the fused tracker: ids and validity equal per

@@ -39,7 +39,13 @@ def test_imports_with_jax_blocked():
         "    visma_tpu_torch.__path__, 'visma_tpu_torch.')]\n"
         f"mods += {SMOKE_IMPORTS!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 40, mods\n"
+        "assert len(mods) >= 55, mods\n"
+        "for m in ('cli.run_vio', 'cli.undistort_images', 'cli.example_load',\n"
+        "          'cli.example_dump', 'io.loader', 'io.glob', 'io.binary',\n"
+        "          'io.json_io', 'filter.feed', 'frontend.klt',\n"
+        "          'image.remap', 'image.undistort', 'utils.timer',\n"
+        "          'utils.platform'):\n"
+        "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"
         "assert not bad, bad\n"
@@ -48,7 +54,7 @@ def test_imports_with_jax_blocked():
         "print(len(mods))\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert len(SMOKE_IMPORTS) >= 10
+    assert len(SMOKE_IMPORTS) >= 14
 
 
 def test_no_source_imports_jax():
@@ -202,3 +208,94 @@ def test_proto_copies_equal_reference():
     assert boxes(TPr).encode() == boxes(JPr).encode()
     em = dict(rows=4, cols=6, data=np.linspace(0, 1, 24).astype(np.float32))
     assert TPr.EdgeMap(**em).encode() == JPr.EdgeMap(**em).encode()
+
+
+def test_loader_copies_equal_reference(tmp_path):
+    """io.glob, io.loader (Python codec on both sides), io.binary and
+    io.json_io on one written sequence and on seeded arrays."""
+    from visma_tpu import io as JIO
+    from visma_tpu.io import loader as JL
+    from visma_tpu_torch import io as TIO
+    from visma_tpu_torch.io import loader as TL
+    from visma_tpu_torch.io.synthetic import SyntheticConfig, write_sequence
+
+    root = str(tmp_path / "seq")
+    write_sequence(root, SyntheticConfig(num_frames=4, num_landmarks=30,
+                                         rows=48, cols=64, fx=60.0, fy=60.0,
+                                         cx=32.0, cy=24.0, seed=9),
+                   write_images=True)
+    for ext in (".png", ".edge", ".bbox"):
+        assert TIO.glob_by_timestamp(root, ext) \
+            == JIO.glob_by_timestamp(root, ext) != []
+    (tmp_path / "names").mkdir()
+    for name in ("b.txt", "a.txt", "10.txt", "9.txt", "x9.dat"):
+        (tmp_path / "names" / name).write_text("")
+    for args in ((".txt",), ("txt", "1"), (".dat", "x")):
+        assert TIO.glob_by_timestamp(str(tmp_path / "names"), *args) \
+            == JIO.glob_by_timestamp(str(tmp_path / "names"), *args)
+
+    tl, jl = TIO.VlslamDatasetLoader(root), JIO.VlslamDatasetLoader(root)
+    assert len(tl) == len(jl) == 4
+    _assert_tree_equal(tl.packed_packets(max_features=16),
+                       jl.packed_packets(max_features=16, native=False))
+    for i in (0, 3):
+        tf, jf = tl.grab(i), jl.grab(i)
+        np.testing.assert_array_equal(tf.image, jf.image)
+        np.testing.assert_array_equal(tf.edgemap, jf.edgemap)
+        np.testing.assert_array_equal(tf.gwc, jf.gwc)
+        np.testing.assert_array_equal(tf.Rg, jf.Rg)
+        assert tf.ts == jf.ts and tf.path == jf.path
+        assert tf.bboxlist.encode() == jf.bboxlist.encode()
+        _assert_tree_equal(tl.grab_sparse_depth(i), jl.grab_sparse_depth(i))
+        _assert_tree_equal(tl.grab_pointcloud(i, tf.image),
+                           jl.grab_pointcloud(i, jf.image))
+    np.testing.assert_array_equal(TL.edge_u8(tf.edgemap),
+                                  JL.edge_u8(jf.edgemap))
+    assert TL.load_edgemap(str(tmp_path / "missing.edge")) is None
+    with pytest.raises(IndexError):
+        tl.grab(4)
+
+    rng = np.random.default_rng(3)
+    mat = rng.normal(size=(5, 7)).astype(np.float32)
+    TIO.save_mat(str(tmp_path / "t.bin"), mat)
+    JIO.save_mat(str(tmp_path / "j.bin"), mat)
+    assert (tmp_path / "t.bin").read_bytes() == (tmp_path / "j.bin").read_bytes()
+    np.testing.assert_array_equal(TIO.load_mat(str(tmp_path / "j.bin")), mat)
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text('{\n  // a comment\n  "a": {"b": 1, "url": "x//y"}, '
+                   '/* block */ "m": [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12]\n}')
+    tj, jj = TIO.load_json(str(cfg)), JIO.load_json(str(cfg))
+    assert tj == jj and tj["a"]["url"] == "x//y"
+    assert TIO.merge_json(tj, {"a": {"c": 2}}) \
+        == JIO.merge_json(jj, {"a": {"c": 2}})
+    np.testing.assert_array_equal(TIO.matrix_from_json(tj, "m"),
+                                  JIO.matrix_from_json(jj, "m"))
+    td, jd = {}, {}
+    TIO.matrix_to_json(td, "m", mat)
+    JIO.matrix_to_json(jd, "m", mat)
+    assert td == jd
+
+
+def test_example_tools_run_on_a_sequence(tmp_path, capsys):
+    """cli.example_load and cli.example_dump print and write what the
+    reference's tools do on the same directory."""
+    from visma_tpu.cli import example_dump as JD, example_load as JLd
+    from visma_tpu_torch.cli import example_dump as TD, example_load as TLd
+    from visma_tpu_torch.io.synthetic import SyntheticConfig, write_sequence
+
+    root = str(tmp_path / "seq")
+    write_sequence(root, SyntheticConfig(num_frames=3, num_landmarks=30,
+                                         rows=48, cols=64, fx=60.0, fy=60.0,
+                                         cx=32.0, cy=24.0, seed=9),
+                   write_images=True)
+    TLd.main([root, "--max-frames", "2"])
+    got = capsys.readouterr().out
+    JLd.main([root, "--max-frames", "2"])
+    assert got == capsys.readouterr().out and "--- frame 1" in got
+    TD.main([root, str(tmp_path / "t")])
+    JD.main([root, str(tmp_path / "j")])
+    for rel in ("K.txt", "pose/000002.txt", "depth/000002.txt"):
+        assert (tmp_path / "t" / rel).read_text() \
+            == (tmp_path / "j" / rel).read_text() != ""
+    assert (tmp_path / "t" / "image" / "000000.jpg").exists()

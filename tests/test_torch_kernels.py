@@ -11,7 +11,8 @@ import torch
 
 from visma_tpu_torch.frontend import detect as tdet, klt_fused as tkf
 from visma_tpu_torch.frontend.pyramid import build_pyramid
-from visma_tpu_torch.image import edges as ted
+from visma_tpu_torch.image import edges as ted, remap as trm
+from visma_tpu_torch.image.undistort import corvis_undistorter
 from visma_tpu_torch.io.procedural import bench_mesh_db
 from visma_tpu_torch.io.synthetic_semantic import BENCH_INTRINSICS
 from visma_tpu_torch.render import raster as trs
@@ -295,3 +296,87 @@ def test_semantic_wrappers_raise_on_bad_input(dev):
         trs.chunk_raster_batched(planes, ids.long(), counts, small)
     out = trs.chunk_raster_batched(planes, ids, counts, small)
     assert torch.isinf(out).all() and out.shape == (2, 32, 32)
+
+
+# ---------------------------------------------------------------------------
+# K6: bilinear remap
+# ---------------------------------------------------------------------------
+
+def _random_table(rng, oh, ow, H, W, dev):
+    t = np.stack([rng.uniform(1, W - 2, (oh, ow)),
+                  rng.uniform(1, H - 2, (oh, ow))], -1).astype(np.float32)
+    t[3, :, 0] = -1.0
+    t[5, 7] = np.nan
+    return torch.as_tensor(t, device=dev)
+
+
+@pytest.mark.parametrize("shape", [(600, 960), (3, 131, 77), (2, 50, 60, 3),
+                                   (2, 3, 40, 44, 1)])
+def test_bilinear_remap_f32_matches_plain(dev, shape):
+    """f32, with batch and channel axes: equal to the plain version (no FMA
+    contraction, the same order), invalid and NaN entries 0."""
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                          device=dev)
+    chan = len(shape) >= 3 and shape[-1] <= 4
+    H, W = shape[-3:-1] if chan else shape[-2:]
+    table = _random_table(rng, 37, 53, H, W, dev)
+    n0 = trm.bilinear_remap.launches
+    got = trm.bilinear_remap(img, table)
+    ref = trm.bilinear_remap_plain(img, table)
+    torch.cuda.synchronize()
+    assert trm.bilinear_remap.launches == n0 + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-5 * 255
+    row = got[..., 3, :, :] if chan else got[..., 3, :]
+    assert float(row.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(8, 600, 960, 3), (5, 131, 77)])
+def test_bilinear_remap_u8_matches_plain(dev, shape):
+    """u8 storage: 0 differing bytes, through the Corvis table's row slice
+    or a random table; a sliced, non-contiguous batch is made contiguous
+    by the wrapper."""
+    rng = np.random.default_rng(1)
+    img = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                          device=dev)
+    if shape[1:3] == (600, 960):
+        table = corvis_undistorter(device=dev).remap[50:550]
+    else:
+        table = _random_table(rng, 64, 40, shape[1], shape[2], dev)
+    got = trm.bilinear_remap(img, table)
+    ref = trm.bilinear_remap_plain(img, table)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and torch.equal(got, ref)
+    every_other = img[::2]
+    assert not every_other.is_contiguous()
+    assert torch.equal(trm.bilinear_remap(every_other, table), ref[::2])
+
+
+def test_bilinear_remap_ties_and_other_dtypes(dev):
+    """Exact .5 values round half to even in the kernel as in torch.round;
+    int32 and float16 go through the f32 kernel and are cast."""
+    y, x = np.mgrid[0:48, 0:64]
+    board = torch.as_tensor(((y + x) % 2 * 255).astype(np.uint8), device=dev)
+    half = torch.as_tensor(np.stack([x + 0.5, y + 0.5], -1)[:-1, :-1]
+                           .astype(np.float32), device=dev)
+    got = trm.bilinear_remap(board, half)
+    assert torch.equal(got, trm.bilinear_remap_plain(board, half))
+    assert set(got.unique().tolist()) == {128}
+    rng = np.random.default_rng(2)
+    table = _random_table(rng, 20, 30, 48, 64, dev)
+    for img in (torch.as_tensor(rng.integers(-50, 400, (48, 64)),
+                                device=dev).to(torch.int32),
+                torch.as_tensor(rng.uniform(0, 1, (48, 64)),
+                                device=dev).to(torch.float16)):
+        n0 = trm.bilinear_remap.launches
+        got = trm.bilinear_remap(img, table)
+        assert trm.bilinear_remap.launches == n0 + 1
+        assert got.dtype == img.dtype
+        assert torch.equal(got, trm.bilinear_remap_plain(img, table))
+
+
+def test_bilinear_remap_refuses_mixed_devices(dev):
+    img = torch.zeros((8, 8), device=dev)
+    with pytest.raises(ValueError, match="CUDA device"):
+        trm.bilinear_remap(img, torch.zeros((4, 4, 2)))

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("corner_score.cu", "lk_level.cu", "chunk_raster.cu",
-           "depth_edge.cu")
+           "depth_edge.cu", "bilinear_remap.cu")
 BUILD_ROOT = _PKG.parent / "build" / "visma_tpu_torch"
 LIB_NAME = "libvisma_tpu_torch.so"
 NVCC_FLAGS = (
@@ -55,6 +55,8 @@ _SIGNATURES = {
     "vt_chunk_raster_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     # (depth, out, B, H, W, lo, range, border, stream)
     "vt_depth_edge": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    # (img, table, out, B, H, W, C, oh, ow, is_u8, stream)
+    "vt_bilinear_remap": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -10,7 +10,10 @@ dataclasses can be rebuilt. For the semantic path,
 `renderer_from_reference` / `renderer_to_numpy` carry a
 `MultiMeshRenderer`'s camera and padded mesh stack (`Vs`, `Fs`, `Cs`,
 names), and `tracks_from_reference` / `tracks_to_numpy` a mapper's object
-tracks (poses, ages, scores). Neither direction imports jax: a reference
+tracks (poses, ages, scores). For the ingest path,
+`undistorter_from_reference` / `undistorter_to_numpy` carry an
+`Undistorter`'s camera model, sizes, output `K` and remap table, so that
+one table can go through both packages' remaps. Neither direction imports jax: a reference
 array crosses as `numpy.asarray` of it.
 """
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 
 from visma_tpu_torch.filter.state import FilterState, TrackTable
 from visma_tpu_torch.frontend.tracker import TrackerState
+from visma_tpu_torch.image.undistort import (AtanModel, RadTanModel,
+                                             Undistorter)
 from visma_tpu_torch.pipeline import PipelineState
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.raster import MultiMeshRenderer
@@ -34,6 +39,10 @@ _NESTED = {"tracks": TrackTable, "tracker": TrackerState,
 
 def _field(obj: Any, name: str):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _has(obj: Any, name: str) -> bool:
+    return name in obj if isinstance(obj, dict) else hasattr(obj, name)
 
 
 def from_reference(obj: Any, cls, device=None):
@@ -120,5 +129,30 @@ def tracks_to_numpy(tracks) -> list:
             for _, t in sorted(tracks.items())]
 
 
+def undistorter_from_reference(ref: Any, device=None) -> Undistorter:
+    """The port's Undistorter from a reference one (or a dict with `model`,
+    `mode`, `out_rows`, `out_cols`, `K`, `remap`): the same camera model and
+    the reference's own table, not a rebuilt one. The model is told apart
+    by its fields (`s`: ATAN; `k1`: radial-tangential). device: as for
+    Undistorter (None means the CUDA card)."""
+    model = _field(ref, "model")
+    cls = RadTanModel if _has(model, "k1") else AtanModel
+    model = cls(**{f.name: _field(model, f.name)
+                   for f in dataclasses.fields(cls)})
+    return Undistorter.from_table(
+        model, str(_field(ref, "mode")), int(_field(ref, "out_rows")),
+        int(_field(ref, "out_cols")), np.asarray(_field(ref, "K")),
+        np.asarray(_field(ref, "remap")), device=device)
+
+
+def undistorter_to_numpy(und: Undistorter) -> dict:
+    """A port Undistorter as a dict of its model fields, mode, sizes, `K`
+    and the numpy table, from which the reference's can be filled."""
+    return {"model": dataclasses.asdict(und.model), "mode": und.mode,
+            "out_rows": und.out_rows, "out_cols": und.out_cols,
+            "K": np.array(und.K), "remap": und.remap.cpu().numpy()}
+
+
 __all__ = ["from_reference", "to_numpy", "renderer_from_reference",
-           "renderer_to_numpy", "tracks_from_reference", "tracks_to_numpy"]
+           "renderer_to_numpy", "tracks_from_reference", "tracks_to_numpy",
+           "undistorter_from_reference", "undistorter_to_numpy"]

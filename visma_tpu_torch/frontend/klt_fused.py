@@ -16,8 +16,8 @@ window semantics without the copy:
     (:222), and a level with wl < 2r+4 is skipped (:223-227);
   * the template start is clamped to [1, win-m-1] (:135-136) and the sample
     start to [0, win-m-1e-4] (:150-155), in window coordinates.
-The tracker always takes these fused semantics with win = 24, the TPU's
-setting; the windowed tracker (frontend/klt.py) is not ported.
+The tracker takes these fused semantics with win = 24, the TPU's setting,
+unless it is asked for the windowed tracker (frontend/klt.py, win 40).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Track management: persistent ids over LK tracks + replenishment (port of
-visma_tpu/frontend/tracker.py along its `fused=True` path).
+visma_tpu/frontend/tracker.py).
 
 Parity traps (pinned in tests/test_torch_frontend.py):
   * `occupied.at[cell_y, cell_x].set(ok)` writes duplicate cells
@@ -17,6 +17,7 @@ import torch
 
 from visma_tpu_torch.filter.msckf import scatter_max
 from visma_tpu_torch.frontend.detect import detect_features
+from visma_tpu_torch.frontend.klt import track_features
 from visma_tpu_torch.frontend.klt_fused import track_features_fused
 from visma_tpu_torch.frontend.pyramid import build_pyramid
 
@@ -49,11 +50,17 @@ class FeatureTracker:
     """LK tracker with fixed capacity and grid replenishment."""
 
     def __init__(self, max_features: int = 64, levels: int = 3,
-                 radius: int = 5, cell: int = 16):
+                 radius: int = 5, cell: int = 16, fused: bool = None):
+        """fused: None or True tracks with the fused LK path
+        (klt_fused.track_features_fused, one lk_level kernel launch per
+        level); False with the windowed tracker (klt.track_features), the
+        JAX package's default off the TPU (tracker.py:40-56): same math and
+        gates, another window size and margin."""
         self.max_features = max_features
         self.levels = levels
         self.radius = radius
         self.cell = cell
+        self.fused = fused is None or bool(fused)
 
     def init(self, image: torch.Tensor) -> TrackerState:
         """Initialize on the first frame: detect only."""
@@ -77,9 +84,9 @@ class FeatureTracker:
         i32 = torch.int32
         cur_pyr = tuple(build_pyramid(image, self.levels))
         live = state.ids >= 0
-        new_pos, ok = track_features_fused(state.pyr, cur_pyr, state.pos,
-                                           live, radius=self.radius,
-                                           levels=self.levels)
+        track = track_features_fused if self.fused else track_features
+        new_pos, ok = track(state.pyr, cur_pyr, state.pos, live,
+                            radius=self.radius, levels=self.levels)
         ok = ok & live
         ids = torch.where(ok, state.ids, torch.full_like(state.ids, -1))
         age = torch.where(ok, state.age + 1, torch.zeros_like(state.age))

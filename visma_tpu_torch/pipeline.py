@@ -1,9 +1,10 @@
 """Full VIO pipeline: images + IMU -> trajectory (port of
 visma_tpu/pipeline.py).
 
-One step per frame: pyramid, fused pyramidal LK (kernel lk_level), corner
-detection and replenishment (kernel corner_score), then the MSCKF frame
-step. `run` loops over a device-staged sequence; nothing in a step reads a
+One step per frame: pyramid, pyramidal LK (fused, kernel lk_level, unless
+`fused_klt=False` asks for the windowed tracker), corner detection and
+replenishment (kernel corner_score), then the MSCKF frame step. The frames
+are undistorted already (image.undistort, kernel bilinear_remap). `run` loops over a device-staged sequence; nothing in a step reads a
 value back to the host, so the GPU is fed without waiting.
 """
 from __future__ import annotations
@@ -30,12 +31,12 @@ class PipelineState:
 
 class VioPipeline:
     def __init__(self, cfg: FilterConfig, levels: int = 3, cell: int = 16,
-                 klt_radius: int = 5, device=None):
+                 klt_radius: int = 5, fused_klt: bool = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
-                                      cell=cell)
+                                      cell=cell, fused=fused_klt)
         self.msckf = Msckf(cfg, device=self.device)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
