@@ -10,13 +10,16 @@ card at the shapes the path gives it:
 
   VIO       240 frames of 500x960 adversarial imagery plus IMU
             (bench.py:67-88) through VioPipeline(levels=4, cell=32).run;
-            gates: health, ATE < 0.10 m; kernels corner_score, lk_level.
+            gates: health, ATE < 0.10 m; kernels corner_score, lk_track
+            (one launch a tracked frame; its per-level entry lk_level is
+            held against its plain version level by level as well).
   semantic  the 4-object chair/desk scene of bench.py:170-207 through
             SemanticMapper.step (detection-driven spawn with retrieval,
             45 frames, finalize); gates of bench.py:318-327: retrieved
             models, 4 tracks, every translation error < 0.05 m, mean
             rotation error < 5 deg, worst < 10 deg; kernels
-            chunk_raster_frame, chunk_raster_batched, depth_edge.
+            chunk_raster_frame, chunk_raster_batched (also on a set of
+            windows made to hurt their coarse cull), depth_edge.
   ingest    the VIO scene as the camera delivers it: 240 raw distorted
             600x960 uint8 frames (the scene rendered with the Corvis
             undistorter's output camera and warped by the inverse ATAN
@@ -26,11 +29,12 @@ card at the shapes the path gives it:
             undistort_images and run_vio command-line tools. Gates: blob
             centroids within 0.25 px of their projections after
             undistortion, health, ATE < 0.10 m; kernels bilinear_remap,
-            corner_score, lk_level.
+            corner_score, lk_track.
 
 For each path the launch counts are set to 0 just before it runs and read
-just after, and must equal what the schedule implies. Prints the card, the
-kernel table as one JSON line and, last, {"ok": true, "device": {...}}.
+just after, and must equal what the schedule implies. No kernel may read
+faster than its bound. Prints the card, the kernel table as one JSON line
+and, last, {"ok": true, "device": {...}}.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import json
@@ -44,6 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 240
 ATE_GATE_M = 0.10          # bench.py:108
 REFERENCE_ATE_CM = 0.37    # BENCH_r05, the JAX reference on this scene
+EARLIER_ATE_CM = {"vio": 0.388, "ingest": 0.708}   # five launches a frame
 LK_TOL_PX = 1e-3           # kernel vs plain displacement, features ok in both
 LK_MAX_OK_FLIPS = 1        # of 96: f32 sum order at the residual/FB gates
 
@@ -196,6 +201,7 @@ def vio_phase(dev, kernels):
                                                  corner_score_plain,
                                                  detect_features)
     from visma_tpu_torch.frontend.klt_fused import (lk_level, lk_level_plain,
+                                                    lk_track, lk_track_plain,
                                                     track_features_fused)
     from visma_tpu_torch.frontend.pyramid import build_pyramid
     from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
@@ -243,13 +249,14 @@ def vio_phase(dev, kernels):
                     "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
                     "bound_by": k1_by, "library_ms": None})
 
-    # K2 and track_features_fused against their plain versions on two
-    # bench frames (K = 96, 4 levels)
+    # K2 level by level, lk_track and track_features_fused against their
+    # plain versions on two bench frames (K = 96, 4 levels)
     prev_pyr = tuple(build_pyramid(torch.as_tensor(frames[0], device=dev), 4))
     cur_pyr = tuple(build_pyramid(img, 4))
     pts, _, valid = detect_features(prev_pyr[0], cfg.max_tracks, 32)
     check(int(valid.sum()) >= 48, "too few corners on the bench frame")
     k2_err, k2_flips = 0.0, 0
+    lk_level.launches = 0
     for lv in range(4):
         args = lk_level_args(prev_pyr, cur_pyr, pts, lv)
         u_k, res_k, ok_k = lk_level(*args)
@@ -264,18 +271,60 @@ def vio_phase(dev, kernels):
         k2_err, k2_flips = max(k2_err, lv_err), k2_flips + flips
     check(k2_err <= LK_TOL_PX, f"lk_level disagrees: {k2_err} px")
     check(k2_flips <= LK_MAX_OK_FLIPS, f"lk_level ok flips: {k2_flips}")
+    check(lk_level.launches == 4, "lk_level did not launch its kernel")
     args0 = lk_level_args(prev_pyr, cur_pyr, pts, 0)
-    k2_ms = cuda_ms(lambda: lk_level(*args0))
-    k2_plain_ms = cuda_ms(lambda: lk_level_plain(*args0))
-    # bytes: K windows of win x win from each of the two images, read once
-    # (what the function must move; the images are far larger), the starts
-    # and origins in, u and the residual out. Operations: per feature and
-    # Gauss-Newton step, ~30 flop on each of 11 x 11 template pixels.
-    K, win = pts.shape[0], args0[6]
-    k2_bytes = 2 * K * win * win * 4 + nbytes(*args0[2:6]) + K * 4 * 4
-    k2_bound, k2_by = bound(k2_bytes, K * 8 * 121 * 30)
-    log(f"K2 time (level 0, K={K}): kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.6f} ms ({k2_by})")
+    lv_ms = cuda_ms(lambda: lk_level(*args0))
+    log(f"K2 lk_level alone (level 0, K={pts.shape[0]}): {lv_ms:.4f} ms")
+
+    # lk_track against lk_track_plain on the card: every 7th feature
+    # invalid, four moved to the frame's edge
+    H, W = prev_pyr[0].shape
+    t_pts = pts.clone()
+    t_pts[:4] = torch.tensor([[2.0, 3.5], [W - 2.5, H - 3.0], [W / 2, 1.0],
+                              [0.5, H / 2]], device=dev)
+    t_valid = valid.clone()
+    t_valid[::7] = False
+    lk_track.launches = 0
+    new_k, ok_k = lk_track(prev_pyr, cur_pyr, t_pts, t_valid, levels=4)
+    torch.cuda.synchronize()
+    check(lk_track.launches == 1, "lk_track did not launch once")
+    new_p, ok_p = lk_track_plain(prev_pyr, cur_pyr, t_pts, t_valid, levels=4)
+    both = ok_k & ok_p
+    trk_err = float((new_k - new_p)[both].abs().max())
+    trk_flips = int((ok_k != ok_p).sum())
+    log(f"K2 lk_track (4 levels + forward-backward in one launch, "
+        f"{int((~t_valid).sum())} features invalid, 4 at the frame's edge): "
+        f"max |dxy| = {trk_err:.3e} px (tol {LK_TOL_PX}), ok flips "
+        f"{trk_flips}, tracked {int(ok_k.sum())}/{int(t_valid.sum())}")
+    check(trk_err <= LK_TOL_PX, f"lk_track disagrees: {trk_err} px")
+    check(trk_flips <= LK_MAX_OK_FLIPS, f"lk_track ok flips: {trk_flips}")
+    check(not bool(ok_k[~t_valid].any())
+          and bool((new_k[~t_valid] == t_pts[~t_valid]).all()),
+          "lk_track moved an invalid feature")
+    check(int(ok_k.sum()) >= 40, "lk_track tracked too few features")
+
+    k2_ms = cuda_ms(lambda: lk_track(prev_pyr, cur_pyr, pts, valid, levels=4))
+    k2_graph_ms = graph_ms(lambda: lk_track(prev_pyr, cur_pyr, pts, valid,
+                                            levels=4))
+    k2_plain_ms = cuda_ms(lambda: lk_track_plain(prev_pyr, cur_pyr, pts,
+                                                 valid, levels=4), reps=5)
+    fused_ms = cuda_ms(lambda: track_features_fused(prev_pyr, cur_pyr, pts,
+                                                    valid, levels=4))
+    # bytes: per level and for the forward-backward pass, K windows of
+    # wl x wl from each of the two images, read once (what the function
+    # must move; the images are far larger); pts and valid in, new_pts and
+    # ok out. Operations: per feature, solve and Gauss-Newton step, ~30
+    # flop on each of 11 x 11 template pixels.
+    K = pts.shape[0]
+    wins = [lk_level_args(prev_pyr, cur_pyr, pts, lv)[6] for lv in range(4)]
+    k2_bytes = sum(2 * K * w * w * 4 for w in wins + wins[:1]) \
+        + 2 * nbytes(pts) + 2 * nbytes(valid)
+    k2_bound, k2_by = bound(k2_bytes, K * 5 * 8 * 121 * 30)
+    log(f"K2 time, one tracked frame (K={K}, windows {wins} + "
+        f"forward-backward): lk_track {k2_ms:.4f} ms through the wrapper "
+        f"({k2_graph_ms:.4f} replayed from a CUDA graph), "
+        f"track_features_fused {fused_ms:.4f} ms, plain {k2_plain_ms:.3f} "
+        f"ms, bound {k2_bound:.6f} ms ({k2_by})")
 
     new_k, ok_k = track_features_fused(prev_pyr, cur_pyr, pts, valid,
                                        levels=4)
@@ -291,12 +340,16 @@ def vio_phase(dev, kernels):
         f"tracked {int(ok_k.sum())}/{int(valid.sum())}")
     check(tr_err <= LK_TOL_PX, f"track_features_fused disagrees: {tr_err}")
     check(tr_flips <= LK_MAX_OK_FLIPS, f"tracker ok flips: {tr_flips}")
-    kernels.append({"name": "lk_level", "route": "cuda",
+    kernels.append({"name": "lk_track", "route": "cuda",
                     "source": "visma_tpu_torch/csrc/lk_level.cu",
                     "replaces": "visma_tpu/frontend/klt_fused.py:118",
-                    "max_abs_err": k2_err, "ms": k2_ms,
+                    "max_abs_err": max(k2_err, trk_err), "ms": k2_ms,
                     "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-                    "bound_by": k2_by, "library_ms": None})
+                    "bound_by": k2_by, "library_ms": None,
+                    "shape": f"one tracked frame: K={K}, 4 levels and the "
+                             "forward-backward pass",
+                    "graph_ms": k2_graph_ms,
+                    "lk_level_alone_ms": lv_ms})
 
     # the main path: VioPipeline.run over the bench scene
     pipe = VioPipeline(cfg, levels=4, cell=32)
@@ -308,7 +361,7 @@ def vio_phase(dev, kernels):
     torch.cuda.synchronize()
 
     corner_score.launches = 0
-    lk_level.launches = 0
+    lk_track.launches = 0
     t0 = time.time()
     st0 = pipe.init(torch.as_tensor(frames[0], device=dev),
                     R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
@@ -316,7 +369,7 @@ def vio_phase(dev, kernels):
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {"corner_score": corner_score.launches,
-                "lk_level": lk_level.launches}
+                "lk_track": lk_track.launches}
     log(f"pipeline first run (init + {N} frames): {first_s:.2f} s; "
         f"launches {launches}")
 
@@ -328,12 +381,14 @@ def vio_phase(dev, kernels):
     ate = float(np.sqrt(np.mean(np.sum((p_est - gwc[1:, :, 3]) ** 2,
                                        axis=1))))
     log(f"pipeline ATE RMSE: {ate * 100:.3f} cm over {N} frames @ 500x960 "
-        f"(JAX reference on this scene: {REFERENCE_ATE_CM} cm)")
+        f"(JAX reference on this scene: {REFERENCE_ATE_CM} cm; this path "
+        f"with five launches a tracked frame: {EARLIER_ATE_CM['vio']} cm)")
     check(ate < ATE_GATE_M, f"accuracy gate failed: ATE {ate:.4f} m")
     check(launches["corner_score"] == N_FRAMES,
           f"corner_score launches {launches['corner_score']} != {N_FRAMES}")
-    check(launches["lk_level"] == N * 5,
-          f"lk_level launches {launches['lk_level']} != {N * 5}")
+    check(launches["lk_track"] == N,
+          f"lk_track launches {launches['lk_track']} != {N}: not one launch "
+          "a tracked frame")
     log(f"tracked observations over the run: {int(outs['obs_valid'].sum())}")
 
     torch.cuda.synchronize()
@@ -348,12 +403,101 @@ def vio_phase(dev, kernels):
     return launches, ate
 
 
-def raster_work(planes, ids, counts, out, sub_px):
-    """Bytes and operations of one chunk-raster call on these inputs: every
-    input read once, the depth written once; each hitting (subtile, chunk)
-    costs sub_px^2 x 128 pair evaluations."""
-    pairs = int(counts.sum()) * sub_px * sub_px * 128
-    return nbytes(planes, ids, counts, out), pairs * RASTER_FLOP_PER_PAIR
+def raster_work(C, poses, intr, origins, planes, ids, counts, out, sub_px):
+    """Bytes and operations of one chunk-raster call on these inputs. Bytes:
+    every input read once, the depth written once. Operations: the (pixel,
+    triangle) pairs whose triangle's own screen bbox holds the pixel, 16
+    flop each: a count that depends neither on the chunking nor on the
+    kernel. Returns (bytes, flop, flop_chunks); flop_chunks is the earlier
+    figure, every pixel of a subtile against all 128 triangles of each of
+    its hitting chunks."""
+    import torch
+
+    from visma_tpu_torch.render import raster as rs
+
+    _, _, x0, x1, y0, y1 = rs._planes_batched(C, poses, intr, origins=origins)
+    nx = torch.clamp(torch.floor(x1), max=intr.cols - 1) \
+        - torch.clamp(torch.ceil(x0), min=0) + 1
+    ny = torch.clamp(torch.floor(y1), max=intr.rows - 1) \
+        - torch.clamp(torch.ceil(y0), min=0) + 1
+    pairs = int((torch.clamp(nx, min=0) * torch.clamp(ny, min=0))
+                .to(torch.float64).sum())
+    chunk_pairs = int(counts.sum()) * sub_px * sub_px * 128
+    return (nbytes(planes, ids, counts, out), pairs * RASTER_FLOP_PER_PAIR,
+            chunk_pairs * RASTER_FLOP_PER_PAIR)
+
+
+def survivor_share(planes, ids, counts, intr, sub_px, step=8):
+    """What the kernels' two culls leave, by the plain cull on the planes'
+    device: (share of the (subtile, triangle) pairs of hitting chunks that
+    survive the subtile's test, share of the (warp footprint, surviving
+    triangle) pairs that survive the footprint's test too)."""
+    import torch
+
+    from visma_tpu_torch.render import raster as rs
+
+    dev = planes.device
+    nc = planes.shape[1]
+    nsx = rs._subtile_grid(intr, sub_px)[1]
+    fh, fw = rs.warp_footprint(sub_px)
+    nfy, nfx = -(-intr.rows // fh), -(-intr.cols // fw)
+    # the subtile each footprint of the (nfy, nfx) grid lies in
+    st_of = ((torch.arange(nfy, device=dev) // (sub_px // fh))[:, None] * nsx
+             + (torch.arange(nfx, device=dev) // (sub_px // fw))[None, :]
+             ).reshape(-1)
+    kept = total = fine_kept = 0
+    for b in range(0, planes.shape[0], step):
+        listed = torch.zeros(ids[b:b + step].shape, dtype=torch.bool,
+                             device=dev)
+        listed.scatter_(2, ids[b:b + step].long(),
+                        torch.arange(nc, device=dev)[None, None]
+                        < counts[b:b + step, :, None])
+        surv = rs.subtile_cull_plain(planes[b:b + step], intr, sub_px) \
+            & listed[..., None]
+        fine = rs.subtile_cull_plain(planes[b:b + step], intr, (fh, fw))
+        kept += int(surv.sum())
+        total += int(listed.sum()) * planes.shape[2]
+        fine_kept += int((fine & surv[:, st_of]).sum())
+    per_subtile = (sub_px // fh) * (sub_px // fw)
+    return kept / max(total, 1), fine_kept / max(kept * per_subtile, 1)
+
+
+def adversarial_windows(mean, mesh_idx, origins, roi):
+    """Windows made to hurt the coarse cull, from the objects' model->camera
+    poses `mean` (n,3,4), their mesh indices and window origins (n,2):
+      * object 0 at all 16 diagonal shifts of its window by one pixel, so
+        that every silhouette runs along a 16-px subtile border in one of
+        them;
+      * objects 0 and 1 pulled to 0.9 m: they overflow the window, with
+        triangles larger than a subtile;
+      * objects 0 and 1 at 0.35 m, partly behind the near plane (dead
+        triangles, huge coefficients), and pushed to 7.8 m, so that the
+        far plane at 8 m clips inside the window;
+      * object 0 seen through a window a frame away: nothing in it.
+    Returns (poses (23,3,4), mesh index (23,), origins (23,2))."""
+    import torch
+
+    def at_depth(k, z):
+        p = mean[k].clone()
+        p[:, 3] = p[:, 3] * (z / p[2, 3])
+        return p
+
+    shifts = torch.arange(16, dtype=origins.dtype, device=origins.device)
+    poses = [mean[0]] * 16
+    orgs = [origins[0] + sh for sh in shifts]
+    idx = [0] * 16
+    for z in (0.9, 0.35, 7.8):
+        for k in (0, 1):
+            poses.append(at_depth(k, z))
+            orgs.append(origins[k])
+            idx.append(k)
+    poses.append(mean[0])
+    orgs.append(origins[0] + torch.tensor(
+        [4.0 * roi[1], 4.0 * roi[0]], dtype=origins.dtype,
+        device=origins.device))
+    idx.append(0)
+    return (torch.stack(poses), mesh_idx[torch.as_tensor(idx)],
+            torch.stack(orgs))
 
 
 def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
@@ -362,13 +506,12 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
     the ROI property, and their times. n_hyp: hypothesis windows per
     object in the timed K4 launch; plain_poses: how many hypothesis
     windows go through the (slow) plain version beside the occluders."""
-    import numpy as np
     import torch
 
-    from visma_tpu_torch.geom.lie import SE3
     from visma_tpu_torch.image.edges import depth_edge, depth_edge_plain
     from visma_tpu_torch.render import raster as rs
     from visma_tpu_torch.semantic.cem import _others_index, _roi_origins
+    from visma_tpu_torch.time_kernels import hypothesis_windows
 
     dev = mapper.device
     Cs = mapper.mrenderer.Cs
@@ -380,14 +523,8 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
     # perturbations of each object's pose, windows centred on the objects,
     # and the n (n-1) occluder windows
     mean = torch.as_tensor(all_poses[0], device=dev)
-    sig = np.array([0.03] * 3 + [0.05] * 3, np.float32)
-    xi = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (n, n_hyp, 6)).astype(np.float32) * sig, device=dev)
-    hyp = (SE3(mean[:, None, :, :3], mean[:, None, :, 3])
-           @ SE3.exp(xi)).matrix3x4().reshape(n * n_hyp, 3, 4)
+    hyp, hyp_mi, hyp_org = hypothesis_windows(mean, mi, intr, roi, n_hyp)
     origins = _roi_origins(mean[:, :, 3], intr, roi)
-    hyp_org = torch.repeat_interleave(origins, n_hyp, dim=0)
-    hyp_mi = torch.repeat_interleave(mi, n_hyp)
     oi = _others_index(n, dev)
     occ_pose, occ_mi = mean[oi], mi[oi]
     occ_org = torch.repeat_interleave(origins, n - 1, dim=0)
@@ -407,28 +544,66 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
         got, ref, f"K4 chunk_raster_batched ({len(pick)} hypothesis + "
         f"{len(occ_pose)} occluder windows of {roi[0]}x{roi[1]})")
 
+    # K4 on the windows made to hurt the cull
+    a_pose, a_mi, a_org = adversarial_windows(mean, mi, origins, roi)
+    got = rs.rasterize_depth_chunked_multi_roi(Cs, a_pose, a_mi, a_org, intr,
+                                               roi)
+    ref = rs.rasterize_depth_chunked_multi_roi_plain(Cs, a_pose, a_mi, a_org,
+                                                     intr, roi)
+    torch.cuda.synchronize()
+    k4_err = max(k4_err, compare_depth(
+        got, ref, f"K4 chunk_raster_batched on {len(a_pose)} adversarial "
+        f"windows (subtile-border shifts, overflow, near and far clipping, "
+        f"empty)"))
+    check(bool(torch.isinf(got[-1]).all()), "the empty window is not empty")
+    check(all(int(torch.isfinite(g).sum()) > 0 for g in got[:-1]),
+          "an adversarial window rendered nothing")
+
     # K4 times at one iteration's hypothesis batch
-    planes, ids, counts = rs._prep_chunks_all(
-        Cs[hyp_mi], hyp, roi_intr, origins=hyp_org, sub_px=rs.SUB_ROI)
+    C = Cs[hyp_mi]
+
+    def prep():
+        return rs._prep_chunks_all(C, hyp, roi_intr, origins=hyp_org,
+                                   sub_px=rs.SUB_ROI)
+
+    planes, ids, counts = prep()
+    prep_ms = cuda_ms(prep, reps=reps)
     out = rs.chunk_raster_batched(planes, ids, counts, roi_intr)
     k4_ms = cuda_ms(lambda: rs.chunk_raster_batched(planes, ids, counts,
                                                     roi_intr), reps=reps)
+    none = torch.zeros_like(counts)
+    k4_empty_ms = cuda_ms(lambda: rs.chunk_raster_batched(planes, ids, none,
+                                                          roi_intr), reps=reps)
     k4_plain_ms = cuda_ms(lambda: rs.chunk_raster_plain(planes, roi_intr),
                           reps=1, warmup=0)
-    k4_bytes, k4_flop = raster_work(planes, ids, counts, out, rs.SUB_ROI)
+    k4_bytes, k4_flop, k4_flop_chunks = raster_work(
+        C, hyp, roi_intr, hyp_org, planes, ids, counts, out, rs.SUB_ROI)
     k4_bound, k4_by = bound(k4_bytes, k4_flop)
+    share, fine = survivor_share(planes, ids, counts, roi_intr, rs.SUB_ROI)
     hit = float(counts.float().mean())
     log(f"K4 time ({planes.shape[0]} windows, nc {planes.shape[1]}, mean "
         f"hitting chunks per 16-px subtile {hit:.2f}, "
-        f"{float((counts > 0).float().mean()):.2f} of subtiles hit): kernel "
-        f"{k4_ms:.4f} ms, plain {k4_plain_ms:.1f} ms, bound {k4_bound:.4f} "
-        f"ms ({k4_by}; {k4_flop:.3e} flop, {k4_bytes:.3e} B)")
+        f"{float((counts > 0).float().mean()):.2f} of subtiles hit, "
+        f"{share:.4f} of the (subtile, triangle) pairs of hitting chunks "
+        f"survive the subtile's cull and {fine:.4f} of the (warp, surviving "
+        f"triangle) pairs the warp footprint's): kernel {k4_ms:.4f} ms ({k4_empty_ms:.4f} with "
+        f"every list empty), plain {k4_plain_ms:.1f} ms, bound "
+        f"{k4_bound:.4f} ms ({k4_by}; {k4_flop:.3e} flop over the triangles' "
+        f"own bboxes, {k4_bytes:.3e} B); every pair of every hitting chunk: "
+        f"{k4_flop_chunks:.3e} flop, "
+        f"{k4_flop_chunks / F32_FLOP_PER_S * 1e3:.4f} ms; _prep_chunks_all "
+        f"for the batch {prep_ms:.4f} ms")
     kernels.append({"name": "chunk_raster_batched", "route": "cuda",
                     "source": "visma_tpu_torch/csrc/chunk_raster.cu",
                     "replaces": "visma_tpu/render/raster.py:289",
                     "max_abs_err": k4_err, "ms": k4_ms,
                     "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-                    "bound_by": k4_by, "library_ms": None})
+                    "bound_by": k4_by, "library_ms": None,
+                    "survivor_share": share, "footprint_share": fine,
+                    "empty_lists_ms": k4_empty_ms,
+                    "all_pairs_of_hitting_chunks_ms":
+                        k4_flop_chunks / F32_FLOP_PER_S * 1e3,
+                    "prep_chunks_all_ms": prep_ms})
 
     # K3: one full-frame pose per mesh against plain and the oracle
     f_pose = torch.as_tensor(all_poses[0, :2], device=dev)
@@ -455,18 +630,28 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
                     reps=reps)
     k3_plain_ms = cuda_ms(lambda: rs.chunk_raster_plain(fp, intr), reps=1,
                           warmup=0)
-    k3_bytes, k3_flop = raster_work(fp, fi, fc, f_out, rs.SUB_FRAME)
+    k3_bytes, k3_flop, k3_flop_chunks = raster_work(
+        Cs[f_mi[:1]], f_pose[:1], intr, None, fp, fi, fc, f_out, rs.SUB_FRAME)
     k3_bound, k3_by = bound(k3_bytes, k3_flop)
+    k3_share, k3_fine = survivor_share(fp, fi, fc, intr, rs.SUB_FRAME)
     log(f"K3 time (one {intr.rows}x{intr.cols} pose, mean hitting chunks "
-        f"per 32-px subtile {float(fc.float().mean()):.2f}): kernel "
-        f"{k3_ms:.4f} ms, plain {k3_plain_ms:.1f} ms, bound {k3_bound:.4f} "
-        f"ms ({k3_by}; {k3_flop:.3e} flop, {k3_bytes:.3e} B)")
+        f"per 32-px subtile {float(fc.float().mean()):.2f}, {k3_share:.4f} "
+        f"of their triangles survive the subtile's cull, {k3_fine:.4f} of "
+        f"those a warp footprint's): kernel {k3_ms:.4f} ms, "
+        f"plain {k3_plain_ms:.1f} ms, bound {k3_bound:.4f} ms ({k3_by}; "
+        f"{k3_flop:.3e} flop over the triangles' own bboxes, "
+        f"{k3_bytes:.3e} B); every pair of every hitting chunk: "
+        f"{k3_flop_chunks:.3e} flop, "
+        f"{k3_flop_chunks / F32_FLOP_PER_S * 1e3:.4f} ms")
     kernels.append({"name": "chunk_raster_frame", "route": "cuda",
                     "source": "visma_tpu_torch/csrc/chunk_raster.cu",
                     "replaces": "visma_tpu/render/raster.py:235",
                     "max_abs_err": k3_err, "ms": k3_ms,
                     "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-                    "bound_by": k3_by, "library_ms": None})
+                    "bound_by": k3_by, "library_ms": None,
+                    "survivor_share": k3_share, "footprint_share": k3_fine,
+                    "all_pairs_of_hitting_chunks_ms":
+                        k3_flop_chunks / F32_FLOP_PER_S * 1e3})
 
     # the ROI property: a K4 window equals the crop of K3's full frame
     win = rs.rasterize_depth_chunked_multi_roi(
@@ -1095,7 +1280,7 @@ def ingest_phase(dev, kernels, direct_ate):
 
     from visma_tpu_torch.filter.config import FilterConfig
     from visma_tpu_torch.frontend.detect import corner_score
-    from visma_tpu_torch.frontend.klt_fused import lk_level
+    from visma_tpu_torch.frontend.klt_fused import lk_track
     from visma_tpu_torch.image.remap import bilinear_remap
     from visma_tpu_torch.image.undistort import (CORVIS_ATAN_CALIB,
                                                  corvis_undistorter)
@@ -1136,14 +1321,16 @@ def ingest_phase(dev, kernels, direct_ate):
     cfg = FilterConfig(window=8, max_tracks=96, max_updates=24,
                        fx=cropped.fx, fy=cropped.fy, cx=cropped.cx,
                        cy=cropped.cy, pixel_noise=1.0)
-    counted = (bilinear_remap, corner_score, lk_level)
+    counted = (bilinear_remap, corner_score, lk_track)
     for fn in counted:
         fn.launches = 0
     res = ingest_run(dev, und, crop, raw_u8, gwc, imu, cfg, levels=4, cell=32)
     n = res["n_frames"]
     log(f"ingest: ATE RMSE {res['ate'] * 100:.3f} cm over {n - 1} frames "
         f"undistorted from raw u8 (the VIO phase's direct run on ideal "
-        f"500-row frames: {direct_ate * 100:.3f} cm); tracked observations "
+        f"500-row frames: {direct_ate * 100:.3f} cm; this path with five "
+        f"launches a tracked frame: {EARLIER_ATE_CM['ingest']} cm); tracked "
+        f"observations "
         f"{res['tracked']}")
     log(f"ingest: undistort {n} frames in one launch: "
         f"{res['und_dev_ms']:.3f} ms by CUDA events ("
@@ -1163,11 +1350,11 @@ def ingest_phase(dev, kernels, direct_ate):
 
     launches = {fn.__name__: fn.launches for fn in counted}
     # one remap launch for the staged sequence and one a file in
-    # undistort_images; one detection a frame; five LK launches a tracked
-    # frame (four levels and the forward-backward pass)
+    # undistort_images; one detection a frame; one LK launch a tracked
+    # frame (four levels and the forward-backward pass inside it)
     want = {"bilinear_remap": 1 + CLI_FRAMES,
             "corner_score": n + CLI_FRAMES,
-            "lk_level": 5 * (n - 1) + 5 * (CLI_FRAMES - 1)}
+            "lk_track": (n - 1) + (CLI_FRAMES - 1)}
     log(f"ingest: launches {launches}")
     check(launches == want, f"ingest launches {launches} != {want}")
     return launches
@@ -1216,6 +1403,10 @@ def main():
         k["launches"] = sum(k["launches_by_path"].values())
         check(min(k["launches_by_path"].values()) > 0,
               f"{k['name']} was never launched on one of its paths")
+        # a reading below the bound means the count of work is wrong
+        check(k["ms"] >= k["bound_ms"],
+              f"{k['name']}: {k['ms']} ms is below its bound "
+              f"{k['bound_ms']} ms")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

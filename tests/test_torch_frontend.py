@@ -208,6 +208,121 @@ class TestLkLevel:
         np.testing.assert_allclose(_np(nt), np.asarray(nj), atol=1e-4)
 
 
+class TestLkTrack:
+    """`lk_track_plain`, the plain version of the one-launch track kernel
+    and what `track_features_fused` runs on CPU tensors."""
+
+    @staticmethod
+    def _problem(shape, shift, seed=2):
+        img0 = textured_image(seed=seed)[:shape[0], :shape[1]].copy()
+        img1 = shift_image(img0, *shift)
+        xy, _, valid = j_detect(jnp.asarray(img0), 24, cell=16,
+                                use_pallas=False)
+        return img0, img1, np.asarray(xy), np.asarray(valid)
+
+    @pytest.mark.parametrize("levels,shape,shift", [
+        (1, (128, 160), (1.4, -0.9)), (2, (128, 160), (3.4, -2.1)),
+        (3, (128, 160), (3.4, -2.1)), (4, (128, 160), (9.5, 6.0)),
+        (4, (96, 112), (3.4, -2.1))])
+    def test_plain_matches_jax(self, levels, shape, shift):
+        """1 to 4 levels + forward-backward against the JAX fused tracker
+        in interpret mode: positions to 1e-4 px, ok equal. The (96, 112)
+        pyramid's top level (12 x 14) is too small and skipped by both."""
+        img0, img1, xy, valid = self._problem(shape, shift)
+        pj = tuple(j_pyramid(jnp.asarray(img0), levels))
+        cj = tuple(j_pyramid(jnp.asarray(img1), levels))
+        nj, okj = JKF.track_features_fused(pj, cj, jnp.asarray(xy),
+                                           jnp.asarray(valid), levels=levels,
+                                           interpret=True)
+        pt = tuple(build_pyramid(_t(img0), levels))
+        ct = tuple(build_pyramid(_t(img1), levels))
+        skipped = [w == 0 for _, _, w in tkf.level_windows(pt, levels, 5, 24)]
+        assert skipped == [False] * 3 + [True] if shape == (96, 112) \
+            else not any(skipped)
+        nt, okt = tkf.lk_track_plain(pt, ct, _t(xy), _t(valid), levels=levels)
+        np.testing.assert_array_equal(_np(okt), np.asarray(okj))
+        assert np.asarray(okj).sum() >= 6
+        np.testing.assert_allclose(_np(nt), np.asarray(nj), atol=1e-4)
+        # the dispatch: CPU tensors take the plain version, no launch
+        before = tkf.lk_track.launches
+        nf, okf = tkf.track_features_fused(pt, ct, _t(xy), _t(valid),
+                                           levels=levels)
+        assert tkf.lk_track.launches == before
+        np.testing.assert_array_equal(_np(nf), _np(nt))
+        np.testing.assert_array_equal(_np(okf), _np(okt))
+
+    def test_invalid_features_come_back_unchanged(self):
+        """A feature that is not valid keeps its position with ok false,
+        and does not change what the others get."""
+        img0, img1, xy, valid = self._problem((128, 160), (3.4, -2.1))
+        pt = tuple(build_pyramid(_t(img0), 3))
+        ct = tuple(build_pyramid(_t(img1), 3))
+        some = valid.copy()
+        some[::3] = False
+        n_all, ok_all = tkf.lk_track_plain(pt, ct, _t(xy), _t(valid))
+        n_some, ok_some = tkf.lk_track_plain(pt, ct, _t(xy), _t(some))
+        off = ~some
+        assert not _np(ok_some)[off].any()
+        np.testing.assert_array_equal(_np(n_some)[off], xy[off])
+        np.testing.assert_array_equal(_np(ok_some)[some], _np(ok_all)[some])
+        np.testing.assert_array_equal(_np(n_some)[some], _np(n_all)[some])
+        assert _np(ok_some).sum() >= 6
+
+    def test_no_features(self):
+        img0, img1, xy, valid = self._problem((128, 160), (3.4, -2.1))
+        pt = tuple(build_pyramid(_t(img0), 3))
+        ct = tuple(build_pyramid(_t(img1), 3))
+        for fn in (tkf.lk_track_plain, tkf.lk_track,
+                   tkf.track_features_fused):
+            n, ok = fn(pt, ct, _t(xy[:0]), _t(valid[:0]))
+            assert n.shape == (0, 2) and ok.shape == (0,) \
+                and ok.dtype == torch.bool
+
+    @pytest.mark.parametrize("shape,levels", [((96, 112), 4), ((100, 75), 4),
+                                              ((500, 960), 4), ((64, 64), 1)])
+    def test_level_table(self, shape, levels):
+        """The table the wrapper packs for the kernel: per level the
+        image pointers, the sizes, and the window
+        min(win, Hl - Hl%8 or Hl, Wl - Wl%8 or Wl) of the reference
+        (klt_fused.py:222), 0 where it is below 2r+4 (:223-227)."""
+        r, win = 5, 24
+        prev = build_pyramid(torch.zeros(shape), levels)
+        cur = build_pyramid(torch.ones(shape), levels)
+        table = tkf.pack_levels(prev, cur, levels, r, win)
+        assert table.n == levels
+        for lv in range(levels):
+            Hl, Wl = prev[lv].shape
+            wl = min(win, Hl - Hl % 8 or Hl, Wl - Wl % 8 or Wl)
+            want = wl if wl >= 2 * r + 4 else 0
+            assert (table.H[lv], table.W[lv], table.wl[lv]) == (Hl, Wl, want)
+            assert table.prev[lv] == prev[lv].data_ptr()
+            assert table.cur[lv] == cur[lv].data_ptr()
+        assert table.wl[0] > 0
+        if shape in ((96, 112), (100, 75)):
+            assert table.wl[levels - 1] == 0      # the top level is skipped
+        assert all(table.wl[lv] == 0 and table.prev[lv] is None
+                   for lv in range(levels, tkf.MAX_LEVELS))
+
+    def test_level_table_refusals(self):
+        img = torch.zeros(64, 64)
+        pyr = build_pyramid(img, 2)
+        with pytest.raises(ValueError, match="levels"):
+            tkf.pack_levels(pyr, pyr, 3, 5, 24)
+        with pytest.raises(ValueError, match="levels"):
+            tkf.pack_levels(pyr, pyr, tkf.MAX_LEVELS + 1, 5, 24)
+        with pytest.raises(ValueError, match="contiguous"):
+            tkf.pack_levels(pyr, [img, torch.zeros(32, 64)[:, ::2]], 2, 5, 24)
+        with pytest.raises(ValueError, match="float32"):
+            tkf.pack_levels(pyr, [img.double(), pyr[1]], 2, 5, 24)
+        tiny = [torch.zeros(12, 12)]
+        with pytest.raises(ValueError, match="too small"):
+            tkf.pack_levels(tiny, tiny, 1, 5, 24)
+        with pytest.raises(ValueError, match="too small"):
+            tkf.track_features_fused(tiny, tiny, torch.zeros(1, 2),
+                                     torch.ones(1, dtype=torch.bool),
+                                     levels=1)
+
+
 class TestKltWindowed:
     """The windowed tracker (frontend/klt.py), plain PyTorch on both the CPU
     and the card: direct indexing in place of the reference's one-hot

@@ -105,6 +105,46 @@ def test_track_features_fused_kernel_vs_plain_on_host(dev):
     assert float((nk.cpu() - npl)[both].abs().max()) <= 1e-3
 
 
+def test_lk_track_matches_plain(dev):
+    """One launch for 4 levels, the forward-backward pass and the gates
+    against lk_track_plain on the card, 96 features of a 500x960 pyramid
+    with every 5th invalid and four at the frame's edge: 1e-3 px where both
+    accept, at most 1 ok flip; invalid features come back unchanged."""
+    img0 = _texture(500, 960, seed=5).to(dev)
+    img1 = torch.roll(img0, shifts=(3, -2), dims=(0, 1)).contiguous()
+    p0, p1 = build_pyramid(img0, 4), build_pyramid(img1, 4)
+    pts, _, valid = tdet.detect_features(img0, 96, 32)
+    pts = pts.clone()
+    pts[:4] = torch.tensor([[2.0, 3.5], [957.5, 497.0], [480.0, 1.0],
+                            [0.5, 250.0]], device=dev)
+    valid = valid.clone()
+    valid[::5] = False
+    n0, l0 = tkf.lk_track.launches, tkf.lk_level.launches
+    nk, okk = tkf.lk_track(p0, p1, pts, valid, levels=4)
+    torch.cuda.synchronize()
+    assert tkf.lk_track.launches == n0 + 1 and tkf.lk_level.launches == l0
+    npl, okp = tkf.lk_track_plain(p0, p1, pts, valid, levels=4)
+    assert int((okk != okp).sum()) <= 1
+    both = okk & okp
+    assert int(both.sum()) >= 40
+    assert float((nk - npl)[both].abs().max()) <= 1e-3
+    assert not bool(okk[~valid].any())
+    assert torch.equal(nk[~valid], pts[~valid])
+    # fewer levels, and a pyramid whose top level is too small and skipped
+    small = (build_pyramid(img0[:96, :112].contiguous(), 4),
+             build_pyramid(img1[:96, :112].contiguous(), 4))
+    assert tkf.level_windows(small[0], 4, 5, 24)[3][2] == 0
+    sp = torch.tensor([[30.0, 40.0], [80.5, 50.25], [60.0, 20.0]], device=dev)
+    sv = torch.ones(3, dtype=torch.bool, device=dev)
+    for pyr, lv in ((small, 4), ((p0, p1), 1), ((p0, p1), 2)):
+        a, oka = tkf.lk_track(*pyr, sp, sv, levels=lv)
+        b, okb = tkf.lk_track_plain(*pyr, sp, sv, levels=lv)
+        assert torch.equal(oka, okb)
+        assert float((a - b).abs().max()) <= 1e-3
+    e, oke = tkf.lk_track(p0, p1, pts[:0], valid[:0], levels=4)
+    assert e.shape == (0, 2) and oke.shape == (0,)
+
+
 def test_wrappers_raise_on_bad_input(dev):
     img = torch.zeros(64, 64, device=dev)
     with pytest.raises(ValueError):
@@ -116,11 +156,35 @@ def test_wrappers_raise_on_bad_input(dev):
     with pytest.raises(ValueError):
         tkf.lk_level(img, img.cpu(), org, org, st[:, :2].repeat(1, 2),
                      st[:, :2].repeat(1, 2), 24)
+    pyr = [img, img[::2, ::2].contiguous()]
+    pts = torch.full((4, 2), 30.0, device=dev)
+    ok = torch.ones(4, dtype=torch.bool, device=dev)
+    tkf.lk_track(pyr, pyr, pts, ok, levels=2)
+    for bad in (dict(pts=pts[:, :1]),                    # not (K, 2)
+                dict(valid=ok.to(torch.uint8)),          # not bool
+                dict(valid=ok[:3]),                      # K mismatch
+                dict(levels=3),                          # pyramid too short
+                dict(levels=9),
+                dict(cur=[img, img[::2, ::2]]),          # not contiguous
+                dict(cur=[img.cpu(), pyr[1].cpu()]),     # another device
+                dict(cur=[img.double(), pyr[1]]),        # not float32
+                dict(radius=16),                         # > 1024 threads
+                dict(win=120)):                          # > 48 KB shared
+        kw = dict(pts=pts, valid=ok, cur=pyr, levels=2, radius=5, win=24)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            tkf.lk_track(pyr, kw["cur"], kw["pts"], kw["valid"],
+                         radius=kw["radius"], levels=kw["levels"],
+                         win=kw["win"])
+    tiny = [torch.zeros(12, 12, device=dev)]
+    with pytest.raises(ValueError, match="too small"):
+        tkf.lk_track(tiny, tiny, pts, ok, levels=1)
 
 
 def test_pipeline_runs_through_kernels(dev):
     """A short VioPipeline run on the card launches K1 once per frame and
-    K2 levels + 1 times per tracked frame, and matches the host run."""
+    K2 once per tracked frame (all levels and the forward-backward pass in
+    one launch), and matches the host run."""
     from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
     from visma_tpu_torch.io.synthetic_images import render_blob_frames
     from visma_tpu_torch.filter.config import FilterConfig
@@ -142,13 +206,13 @@ def test_pipeline_runs_through_kernels(dev):
     outs = {}
     for d in (dev, torch.device("cpu")):
         pipe = VioPipeline(cfg, levels=3, cell=16, device=d)
-        k1, k2 = tdet.corner_score.launches, tkf.lk_level.launches
+        k1, k2 = tdet.corner_score.launches, tkf.lk_track.launches
         _, outs[d.type] = pipe.run(pipe.init(frames[0], **init), frames[1:],
                                    gyro, accel, dts)
         if d.type == "cuda":
             torch.cuda.synchronize()
             assert tdet.corner_score.launches - k1 == N + 1
-            assert tkf.lk_level.launches - k2 == N * 4
+            assert tkf.lk_track.launches - k2 == N
     np.testing.assert_array_equal(outs["cuda"]["obs_ids"].cpu().numpy(),
                                   outs["cpu"]["obs_ids"].numpy())
     np.testing.assert_allclose(outs["cuda"]["p"].cpu().numpy(),
@@ -259,6 +323,41 @@ def test_chunk_raster_batched_matches_plain_and_crop(dev):
             _assert_depth_close(got[b], crop, f"crop of window {b}")
 
 
+def test_chunk_raster_on_windows_made_to_hurt_the_cull(dev):
+    """K4 on the adversarial windows of chip_smoke.py (silhouettes along
+    subtile borders, objects overflowing the window, near and far clipping
+    inside it, an empty window) and K3 on the same poses as full frames:
+    exact coverage and 1e-6 relative depth against plain."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from visma_tpu_torch.io.synthetic_semantic import bench_scene
+    from visma_tpu_torch.semantic.cem import _roi_origins
+
+    r = _bench_stack(dev)
+    roi = (256, 384)
+    names, _, _, _, all_poses = bench_scene(1, 4)
+    mean = torch.as_tensor(all_poses[0], device=dev)
+    mi = torch.as_tensor([r.index(n) for n in names], device=dev)
+    org = _roi_origins(mean[:, :, 3], BENCH_INTR, roi)
+    a_pose, a_mi, a_org = chip_smoke.adversarial_windows(mean, mi, org, roi)
+    got = trs.rasterize_depth_chunked_multi_roi(r.Cs, a_pose, a_mi, a_org,
+                                                BENCH_INTR, roi)
+    ref = trs.rasterize_depth_chunked_multi_roi_plain(r.Cs, a_pose, a_mi,
+                                                      a_org, BENCH_INTR, roi)
+    torch.cuda.synchronize()
+    _assert_depth_equal(got, ref, "adversarial windows")
+    assert bool(torch.isinf(got[-1]).all())
+    pick = torch.tensor([0, 16, 17, 18, 19, 20, 21], device=dev)
+    full = trs.rasterize_depth_chunked_multi(r.Cs, a_pose[pick], a_mi[pick],
+                                             BENCH_INTR)
+    full_ref = trs.rasterize_depth_chunked_multi_plain(
+        r.Cs, a_pose[pick], a_mi[pick], BENCH_INTR)
+    _assert_depth_equal(full, full_ref, "adversarial poses, full frames")
+
+
 @pytest.mark.parametrize("shape", [(24, 256, 384), (3, 500, 960),
                                    (2, 2, 37, 53)])
 def test_depth_edge_matches_plain(dev, shape):
@@ -284,7 +383,7 @@ def test_depth_edge_matches_plain(dev, shape):
 
 
 def test_semantic_wrappers_raise_on_bad_input(dev):
-    planes = torch.zeros((2, 3, 12, 128), device=dev)
+    planes = torch.zeros((2, 3, 128, 12), device=dev)
     ids = torch.zeros((2, 4, 3), dtype=torch.int32, device=dev)
     counts = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     small = Intrinsics(fx=50.0, fy=50.0, cx=16.0, cy=16.0, rows=32, cols=32)
@@ -294,6 +393,13 @@ def test_semantic_wrappers_raise_on_bad_input(dev):
         trs.chunk_raster_batched(planes, ids[:, :3], counts[:, :3], small)
     with pytest.raises(ValueError):                 # ids not int32
         trs.chunk_raster_batched(planes, ids.long(), counts, small)
+    with pytest.raises(ValueError):                 # the lane-major layout
+        trs.chunk_raster_batched(planes.transpose(2, 3).contiguous(), ids,
+                                 counts, small)
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        trs.chunk_raster_batched(
+            torch.zeros(2 * 3 * 128 * 12 + 1, device=dev)[1:].reshape(
+                2, 3, 128, 12), ids, counts, small)
     out = trs.chunk_raster_batched(planes, ids, counts, small)
     assert torch.isinf(out).all() and out.shape == (2, 32, 32)
 

@@ -124,9 +124,11 @@ def test_prep_chunks_planes_and_hits(stack, sub_px, roi):
         origins=None if org is None else jnp.asarray(org), sub_px=sub_px)
     jpl, jids, jcnt = np.asarray(jpl), np.asarray(jids), np.asarray(jcnt)
     B, nc = tpl.shape[:2]
-    assert tpl.shape == (B, nc, 12, 128) and jpl.shape == (B, nc, 16, 128)
-    np.testing.assert_allclose(tpl.numpy(), jpl[:, :, :12], rtol=1e-4,
-                               atol=1e-5)
+    # the port's table is triangle-major: transpose the reference's
+    assert tpl.shape == (B, nc, 128, 12) and jpl.shape == (B, nc, 16, 128)
+    np.testing.assert_allclose(tpl.numpy(),
+                               jpl[:, :, :12].transpose(0, 1, 3, 2),
+                               rtol=1e-4, atol=1e-5)
     # the reference bins over a grid padded to (32, 128)-px blocks; the
     # port's grid is its top-left part
     nsy, nsx = TR._subtile_grid(ti, sub_px)

@@ -49,6 +49,9 @@ _SIGNATURES = {
     #  iters, stream)
     "vt_lk_level": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                     _P),
+    # (level table by reference, pts, valid, new_pts, ok, K, radius, iters,
+    #  max_residual, fb_thresh, stream)
+    "vt_lk_track": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # (planes, ids, counts, out, nc, H, W, inv_near, inv_far, stream)
     "vt_chunk_raster_frame": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # (planes, ids, counts, out, B, nc, H, W, inv_near, inv_far, stream)

@@ -19,7 +19,7 @@ level images directly and keeps the arithmetic:
 `track_features` is the windowed tracker (win 40), the JAX package's default
 off the TPU; `track_features_gather` is its per-feature oracle with
 per-patch border clamping. The tracker's default path is the fused one
-(frontend/klt_fused.py, kernel lk_level).
+(frontend/klt_fused.py, kernel lk_track).
 """
 from __future__ import annotations
 

@@ -1,13 +1,19 @@
-"""Pyramidal Lucas-Kanade with one kernel launch per level (port of
+"""Pyramidal Lucas-Kanade with one kernel launch per tracked frame (port of
 visma_tpu/frontend/klt_fused.py).
 
-`lk_level` solves one pyramid level of inverse-compositional LK for all K
-features. On CUDA tensors it launches the hand-written kernel
-`csrc/lk_level.cu` (the port of the TPU kernel klt_fused.py::_lk_level_kernel),
-one launch per call; on CPU tensors it runs `lk_level_plain`.
+`track_features_fused` tracks K features through the pyramid. On CUDA
+tensors it is one launch of `lk_track` (kernel `vt_lk_track` of
+`csrc/lk_level.cu`): a thread block a feature walks the levels coarse to
+fine, then the forward-backward pass and the gates. On CPU tensors it runs
+`lk_track_plain`, the same schedule in PyTorch over `lk_level_plain`.
 
-Both read the level images directly. The reference first cuts a win x win
-window per feature out of each level with one-hot matmuls
+`lk_level` solves one pyramid level alone (kernel `vt_lk_level`, the port
+of the TPU kernel klt_fused.py::_lk_level_kernel; on CPU tensors
+`lk_level_plain`). The tracker no longer calls it; it stays as the entry
+that holds the kernel's solve against the plain one level by level.
+
+All of them read the level images directly. The reference first cuts a
+win x win window per feature out of each level with one-hot matmuls
 (`_extract_windows_klast`, a TPU gather workaround) and samples it with hat
 taps; inside the window hat taps are two-tap bilinear, so the port keeps the
 window semantics without the copy:
@@ -20,6 +26,8 @@ The tracker takes these fused semantics with win = 24, the TPU's setting,
 unless it is asked for the windowed tracker (frontend/klt.py, win 40).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -124,9 +132,7 @@ def lk_level(imgT, imgI, orgT, orgI, stT, sI0, win: int, radius: int = 5,
     if imgT.device.type == "cpu":
         return lk_level_plain(imgT, imgI, orgT, orgI, stT, sI0, win, radius,
                               iters)
-    if (2 * radius + 1) ** 2 > 1024:
-        raise ValueError(f"lk_level kernel: radius {radius} needs more than "
-                         "1024 threads per block")
+    _check_block("lk_level", radius, win)
     if imgT.shape != imgI.shape or imgT.dtype != torch.float32 \
             or imgI.dtype != torch.float32:
         raise ValueError("lk_level kernel: imgT and imgI must be float32 of "
@@ -159,9 +165,169 @@ def lk_level(imgT, imgI, orgT, orgI, stT, sI0, win: int, radius: int = 5,
 lk_level.launches = 0
 
 
+_SCRATCH_FLOATS = 2 * 3 * 32    # two reduction buffers of 3 sums x 32 warps
+
+
+def _check_block(name: str, radius: int, win: int) -> None:
+    """One thread a template pixel, and the patch and the search window in
+    shared memory: raise on a radius or window the block cannot hold."""
+    m = 2 * radius + 1
+    if m * m > 1024:
+        raise ValueError(f"{name} kernel: radius {radius} needs more than "
+                         "1024 threads per block")
+    if 4 * (_SCRATCH_FLOATS + (m + 2) ** 2 + win * win) > 48 * 1024:
+        raise ValueError(f"{name} kernel: window {win} with radius {radius} "
+                         "needs more than 48 KB of shared memory")
+
+
 def _starts(pts: torch.Tensor, r: int, org: torch.Tensor) -> torch.Tensor:
     """(2, K) (row, col) patch starts of points (K, 2) inside windows."""
     return (pts - r - org.to(torch.float32)).T.flip(0).contiguous()
+
+
+MAX_LEVELS = 8
+
+
+def level_windows(pyr, levels: int, radius: int, win: int):
+    """Per level 0..levels-1 of a pyramid, (Hl, Wl, wl): the level's window
+    wl = min(win, Hl - Hl%8 or Hl, Wl - Wl%8 or Wl), or 0 for a level too
+    small to host the patch (wl < 2r+4), which the tracker skips. Level 0
+    too small raises."""
+    out = []
+    for lv in range(levels):
+        Hl, Wl = pyr[lv].shape
+        wl = min(win, Hl - Hl % 8 or Hl, Wl - Wl % 8 or Wl)
+        if wl < 2 * radius + 4:
+            if lv == 0:
+                raise ValueError(
+                    f"level-0 window {wl} too small for radius {radius}")
+            wl = 0
+        out.append((Hl, Wl, wl))
+    return out
+
+
+class LkLevels(ctypes.Structure):
+    """The level table `vt_lk_track` takes by value (csrc/lk_level.cu):
+    per-level image pointers of the two pyramids, sizes, and the level's
+    window (0 = skipped)."""
+    _fields_ = [("prev", ctypes.c_void_p * MAX_LEVELS),
+                ("cur", ctypes.c_void_p * MAX_LEVELS),
+                ("H", ctypes.c_int * MAX_LEVELS),
+                ("W", ctypes.c_int * MAX_LEVELS),
+                ("wl", ctypes.c_int * MAX_LEVELS),
+                ("n", ctypes.c_int)]
+
+
+def pack_levels(prev_pyr, cur_pyr, levels: int, radius: int,
+                win: int) -> LkLevels:
+    """The level table of two pyramids (lists of contiguous float32 (Hl, Wl)
+    tensors, equal shapes level by level). The table holds raw pointers:
+    the pyramids must outlive the launch that reads it."""
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"lk_track: 1 to {MAX_LEVELS} levels, got {levels}")
+    if len(prev_pyr) < levels or len(cur_pyr) < levels:
+        raise ValueError(f"lk_track: pyramids shorter than {levels} levels")
+    table = LkLevels()
+    table.n = levels
+    for lv, (Hl, Wl, wl) in enumerate(
+            level_windows(prev_pyr, levels, radius, win)):
+        p, c = prev_pyr[lv], cur_pyr[lv]
+        if p.shape != c.shape or p.dtype != torch.float32 \
+                or c.dtype != torch.float32 or p.device != c.device \
+                or not (p.is_contiguous() and c.is_contiguous()):
+            raise ValueError(
+                f"lk_track: level {lv} must be two contiguous float32 "
+                "images of one shape on one device")
+        table.prev[lv], table.cur[lv] = p.data_ptr(), c.data_ptr()
+        table.H[lv], table.W[lv], table.wl[lv] = Hl, Wl, wl
+    return table
+
+
+def lk_track_plain(prev_pyr, cur_pyr, pts: torch.Tensor, valid: torch.Tensor,
+                   radius: int = 5, iters: int = 8, levels: int = 3,
+                   max_residual: float = 12.0, fb_thresh: float = 1.0,
+                   win: int = 24):
+    """Plain PyTorch twin of the track kernel; see `lk_track`. One
+    `lk_level_plain` a level and one for the forward-backward pass, with
+    the level algebra between them in float32."""
+    H, W = cur_pyr[0].shape
+    r = radius
+    d = torch.zeros_like(pts)
+    ok = valid
+    lvl0 = None
+    windows = level_windows(prev_pyr, levels, r, win)
+    for lv in range(levels - 1, -1, -1):
+        Hl, Wl, wl = windows[lv]
+        if wl == 0:
+            continue  # level too small to host the patch: skip refinement
+        scale = 2.0 ** lv
+        pts_l = pts / scale
+        est = pts_l + d / scale
+        orgP = window_origin(pts_l, wl, Hl, Wl)
+        orgC = window_origin(est, wl, Hl, Wl)
+        u, res, ok_l = lk_level_plain(prev_pyr[lv], cur_pyr[lv], orgP, orgC,
+                                      _starts(pts_l, r, orgP),
+                                      _starts(est, r, orgC), wl, r, iters)
+        d = (est + torch.stack([u[1], u[0]], dim=-1) - pts_l) * scale
+        ok = ok & ok_l
+        if lv == 0:
+            lvl0 = (orgP, orgC, res, wl)
+    new_pt = pts + d
+    orgP0, orgC0, res0, wl0 = lvl0
+
+    # forward-backward: template from cur at new_pt, iterate sampling prev
+    v, _, _ = lk_level_plain(cur_pyr[0], prev_pyr[0], orgC0, orgP0,
+                             _starts(new_pt, r, orgC0),
+                             _starts(pts, r, orgP0), wl0, r, iters)
+    fb_err = torch.sqrt(v[0] ** 2 + v[1] ** 2)
+
+    inb = ((new_pt[:, 0] >= r + 1) & (new_pt[:, 0] < W - r - 1)
+           & (new_pt[:, 1] >= r + 1) & (new_pt[:, 1] < H - r - 1))
+    ok = ok & inb & (res0 < max_residual) & (fb_err < fb_thresh) \
+        & torch.isfinite(new_pt).all(dim=-1)
+    return torch.where(ok[:, None], new_pt, pts), ok
+
+
+def lk_track(prev_pyr, cur_pyr, pts: torch.Tensor, valid: torch.Tensor,
+             radius: int = 5, iters: int = 8, levels: int = 3,
+             max_residual: float = 12.0, fb_thresh: float = 1.0,
+             win: int = 24):
+    """A whole tracked frame for K features: the levels coarse to fine, the
+    forward-backward pass and the gates (convergence at every level,
+    in-bounds, residual, forward-backward error, finiteness).
+
+    prev_pyr / cur_pyr: pyramids, level 0 first, (Hl, Wl) f32; pts (K, 2)
+    f32 (x, y); valid (K,) bool. Returns (new_pts (K, 2), ok (K,) bool);
+    a feature that is not ok keeps its old position.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    once or raises.
+    """
+    if pts.device.type == "cpu":
+        return lk_track_plain(prev_pyr, cur_pyr, pts, valid, radius, iters,
+                              levels, max_residual, fb_thresh, win)
+    _check_block("lk_track", radius, win)
+    table = pack_levels(prev_pyr, cur_pyr, levels, radius, win)
+    K = pts.shape[0]
+    if pts.shape != (K, 2) or pts.dtype != torch.float32 \
+            or valid.shape != (K,) or valid.dtype != torch.bool:
+        raise ValueError("lk_track kernel: expected pts (K, 2) float32 and "
+                         "valid (K,) bool")
+    _kernels.require_cuda("lk_track", pts, valid, *prev_pyr[:levels])
+    new_pts = torch.empty_like(pts)
+    ok = torch.empty_like(valid)
+    if K == 0:
+        return new_pts, ok
+    rc = _kernels.library().vt_lk_track(
+        ctypes.byref(table), pts.data_ptr(), valid.data_ptr(),
+        new_pts.data_ptr(), ok.data_ptr(), K, radius, iters, max_residual,
+        fb_thresh, _kernels.stream_of(pts))
+    _kernels.check(rc, "lk_track")
+    lk_track.launches += 1
+    return new_pts, ok
+
+
+lk_track.launches = 0
 
 
 def track_features_fused(prev_pyr, cur_pyr, pts: torch.Tensor,
@@ -171,43 +337,7 @@ def track_features_fused(prev_pyr, cur_pyr, pts: torch.Tensor,
                          win: int = 24):
     """Track `pts` (K, 2) from the prev to the cur pyramid; same gates as
     the reference (klt_fused.py:202-255): convergence at every level,
-    in-bounds, residual and forward-backward. Returns (new_pts, ok)."""
-    H, W = cur_pyr[0].shape
-    r = radius
-    d = torch.zeros_like(pts)
-    ok = valid
-    lvl0 = None
-    for lv in range(levels - 1, -1, -1):
-        scale = 2.0 ** lv
-        Hl, Wl = prev_pyr[lv].shape
-        wl = min(win, Hl - Hl % 8 or Hl, Wl - Wl % 8 or Wl)
-        if wl < 2 * r + 4:
-            if lv == 0:
-                raise ValueError(
-                    f"level-0 window {wl} too small for radius {r}")
-            continue  # level too small to host the patch: skip refinement
-        pts_l = pts / scale
-        est = pts_l + d / scale
-        orgP = window_origin(pts_l, wl, Hl, Wl)
-        orgC = window_origin(est, wl, Hl, Wl)
-        u, res, ok_l = lk_level(prev_pyr[lv], cur_pyr[lv], orgP, orgC,
-                                _starts(pts_l, r, orgP), _starts(est, r, orgC),
-                                wl, r, iters)
-        d = (est + torch.stack([u[1], u[0]], dim=-1) - pts_l) * scale
-        ok = ok & ok_l
-        if lv == 0:
-            lvl0 = (orgP, orgC, res, wl)
-    new_pt = pts + d
-    orgP0, orgC0, res0, wl0 = lvl0
-
-    # forward-backward: template from cur at new_pt, iterate sampling prev
-    v, _, _ = lk_level(cur_pyr[0], prev_pyr[0], orgC0, orgP0,
-                       _starts(new_pt, r, orgC0), _starts(pts, r, orgP0),
-                       wl0, r, iters)
-    fb_err = torch.sqrt(v[0] ** 2 + v[1] ** 2)
-
-    inb = ((new_pt[:, 0] >= r + 1) & (new_pt[:, 0] < W - r - 1)
-           & (new_pt[:, 1] >= r + 1) & (new_pt[:, 1] < H - r - 1))
-    ok = ok & inb & (res0 < max_residual) & (fb_err < fb_thresh) \
-        & torch.isfinite(new_pt).all(dim=-1)
-    return torch.where(ok[:, None], new_pt, pts), ok
+    in-bounds, residual and forward-backward. Returns (new_pts, ok). One
+    `lk_track` launch on CUDA tensors, `lk_track_plain` on CPU tensors."""
+    return lk_track(prev_pyr, cur_pyr, pts, valid, radius, iters, levels,
+                    max_residual, fb_thresh, win)

@@ -52,8 +52,8 @@ class FeatureTracker:
     def __init__(self, max_features: int = 64, levels: int = 3,
                  radius: int = 5, cell: int = 16, fused: bool = None):
         """fused: None or True tracks with the fused LK path
-        (klt_fused.track_features_fused, one lk_level kernel launch per
-        level); False with the windowed tracker (klt.track_features), the
+        (klt_fused.track_features_fused, one lk_track kernel launch per
+        tracked frame); False with the windowed tracker (klt.track_features), the
         JAX package's default off the TPU (tracker.py:40-56): same math and
         gates, another window size and margin."""
         self.max_features = max_features

@@ -1,7 +1,7 @@
 """Full VIO pipeline: images + IMU -> trajectory (port of
 visma_tpu/pipeline.py).
 
-One step per frame: pyramid, pyramidal LK (fused, kernel lk_level, unless
+One step per frame: pyramid, pyramidal LK (fused, kernel lk_track, unless
 `fused_klt=False` asks for the windowed tracker), corner detection and
 replenishment (kernel corner_score), then the MSCKF frame step. The frames
 are undistorted already (image.undistort, kernel bilinear_remap). `run` loops over a device-staged sequence; nothing in a step reads a

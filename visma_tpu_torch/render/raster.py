@@ -8,7 +8,9 @@ so a pixel is inside iff three planes are >= 0 (both windings, no backface
 culling, as the reference GL pipeline) and z-buffering is a maximum of
 1/z. Faces are Morton-sorted once per mesh and processed in chunks of 128;
 per image subtile the setup packs the id list of the chunks whose screen
-bbox hits it, and the kernel loops over those chunks only. The result is
+bbox hits it; the kernel culls each hitting chunk's triangles against the
+subtile with an exact corner test (`subtile_cull_plain` is its plain
+version) and runs the pixel loop over the survivors only. The result is
 exact: every triangle is considered for every subtile it touches.
 
 Setup (`_planes_batched`, `_prep_chunks_all`) is plain PyTorch, batched
@@ -29,7 +31,11 @@ folded in.
 What exists in the reference only for the TPU and has no counterpart
 here: the (nc, nsub) transposed id layout and the 16-row padded plane
 table (scalar-memory and sublane layouts; the port keeps ids (B, nsub, nc)
-and 12 plane rows), the strip-shaped output blocks, and the executors that
+and 12 coefficients a triangle), the lane-major (B, nc, 12, 128) plane
+table with a chunk's 128 triangles last (the port keeps the table
+triangle-major, (B, nc, 128, 12), a reshape of what the triangle setup
+makes: no transposing copy in the setup and none in the kernel), the
+strip-shaped output blocks, and the executors that
 close over the mesh stack as compile-time constants (`_chunked_exec`).
 The XLA tile-binned path (`rasterize_depth`, `_raster_tiles`) was the
 reference's CPU fallback with a fixed per-tile capacity; the port's CPU
@@ -142,9 +148,9 @@ def _subtile_grid(intr: Intrinsics, sub_px: int):
 def _pack_chunks(planes, x0, x1, y0, y1, intr: Intrinsics, chunk: int,
                  sub_px: int):
     """Pad (B,T,...) triangle data to whole chunks and bin chunk bboxes
-    against the subtile grid. Returns (planes (B,nc,12,chunk), ids
-    (B,nsub,nc) i32 with the hitting chunk ids first in ascending order,
-    counts (B,nsub) i32)."""
+    against the subtile grid. Returns (planes (B,nc,chunk,12), a reshape of
+    the triangle-major table and no copy, ids (B,nsub,nc) i32 with the
+    hitting chunk ids first in ascending order, counts (B,nsub) i32)."""
     B, T = planes.shape[:2]
     pad = (-T) % chunk
     nc = (T + pad) // chunk
@@ -179,14 +185,13 @@ def _pack_chunks(planes, x0, x1, y0, y1, intr: Intrinsics, chunk: int,
                                                     device=dev))
     ids = torch.sort(score, dim=-1, descending=True, stable=True).indices
     counts = ov.sum(dim=-1, dtype=torch.int32)
-    cpl = planes.reshape(B, nc, chunk, 12).transpose(2, 3).contiguous()
-    return cpl, ids.to(torch.int32).contiguous(), counts.contiguous()
+    return planes.reshape(B, nc, chunk, 12), ids.to(torch.int32).contiguous(), counts.contiguous()
 
 
 def _prep_chunks_all(C, poses_cw, intr: Intrinsics, chunk: int = CHUNK,
                      origins=None, sub_px: int = SUB_FRAME):
     """Kernel inputs for B poses: C (B,T,3,3) face corners -> (planes
-    (B,nc,12,chunk), ids (B,nsub,nc) i32, counts (B,nsub) i32) over the
+    (B,nc,chunk,12), ids (B,nsub,nc) i32, counts (B,nsub) i32) over the
     (ceil(rows/sub_px), ceil(cols/sub_px)) subtile grid, row-major."""
     planes, _, x0, x1, y0, y1 = _planes_batched(C, poses_cw, intr,
                                                 origins=origins)
@@ -200,9 +205,9 @@ def _prep_chunks_all(C, poses_cw, intr: Intrinsics, chunk: int = CHUNK,
 def chunk_raster_plain(planes: torch.Tensor, intr: Intrinsics
                        ) -> torch.Tensor:
     """Plain PyTorch twin of the chunk-raster kernels: planes
-    (B,nc,12,chunk) -> depth (B,H,W), +inf background. Every pixel against
+    (B,nc,chunk,12) -> depth (B,H,W), +inf background. Every pixel against
     every chunk of its pose, one chunk at a time: each plane as
-    px*a + py*b + c in that order, inside iff the three edge planes are
+    (px*a + py*b) + c in that order, inside iff the three edge planes are
     >= 0 and 1/far < 1/z < 1/near, maximum inverse depth."""
     B, nc = planes.shape[:2]
     H, W = intr.rows, intr.cols
@@ -215,10 +220,11 @@ def chunk_raster_plain(planes: torch.Tensor, intr: Intrinsics
     for b in range(B):
         best = torch.zeros(H * W, dtype=torch.float32, device=dev)
         for c in range(nc):
-            p = planes[b, c]                                  # (12, chunk)
+            p = planes[b, c]                                  # (chunk, 12)
 
             def plane(k):
-                return px * p[3 * k] + py * p[3 * k + 1] + p[3 * k + 2]
+                return px * p[:, 3 * k] + py * p[:, 3 * k + 1] \
+                    + p[:, 3 * k + 2]
 
             iz = plane(3)
             inside = ((plane(0) >= 0) & (plane(1) >= 0) & (plane(2) >= 0)
@@ -234,6 +240,58 @@ def _inv_to_depth(inv: torch.Tensor) -> torch.Tensor:
                        torch.full_like(inv, float("inf")))
 
 
+def warp_footprint(sub_px: int):
+    """(rows, cols) of the pixel rectangle one warp of the raster kernels
+    owns: a quarter of the subtile's rows by half of its columns."""
+    return sub_px // 4, sub_px // 2
+
+
+def subtile_cull_plain(planes: torch.Tensor, intr: Intrinsics,
+                       sub_px) -> torch.Tensor:
+    """Plain PyTorch twin of the kernels' coarse test: planes
+    (B,nc,chunk,12) -> survivors (B,nsub,nc,chunk) bool over the row-major
+    grid of sub_px-square subtiles, or of (rows, cols) rectangles where
+    sub_px is a pair (the kernels apply the same test once more to each
+    warp's `warp_footprint`). Each plane is evaluated as (px*a + py*b) + c,
+    the pixel test's own expression, at the corner of the rectangle's pixel
+    range that maximises it (px = x_lo if a < 0 else x_hi, py likewise); the
+    1/z plane also at its minimising corner. A triangle survives iff its
+    three edge maxima are >= 0, max 1/z > 1/far and min 1/z < 1/near.
+
+    Rounded products and sums are monotone, so a corner value is the
+    maximum over the rectangle's pixels of what the pixel test computes: no
+    pixel of the rectangle accepts a culled triangle."""
+    sub_y, sub_x = (sub_px, sub_px) if isinstance(sub_px, int) else sub_px
+    nsy, nsx = -(-intr.rows // sub_y), -(-intr.cols // sub_x)
+    dev = planes.device
+    inv_near, inv_far = 1.0 / intr.z_near, 1.0 / intr.z_far
+    ty = torch.arange(nsy, device=dev) * sub_y
+    tx = torch.arange(nsx, device=dev) * sub_x
+
+    def grid(lo, dim, along_x):
+        hi = torch.clamp(lo + ((sub_x if along_x else sub_y) - 1),
+                         max=dim - 1)
+        lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+        if along_x:
+            lo, hi = lo.repeat(nsy), hi.repeat(nsy)
+        else:
+            lo, hi = lo.repeat_interleave(nsx), hi.repeat_interleave(nsx)
+        return lo[None, :, None, None], hi[None, :, None, None]
+
+    x_lo, x_hi = grid(tx, intr.cols, True)
+    y_lo, y_hi = grid(ty, intr.rows, False)
+
+    def corner(k, want_max):
+        a, b, c = (planes[:, None, :, :, 3 * k + j] for j in range(3))
+        px = torch.where((a < 0) == want_max, x_lo, x_hi)
+        py = torch.where((b < 0) == want_max, y_lo, y_hi)
+        return px * a + py * b + c
+
+    return ((corner(0, True) >= 0) & (corner(1, True) >= 0)
+            & (corner(2, True) >= 0) & (corner(3, True) > inv_far)
+            & (corner(3, False) < inv_near))
+
+
 def _check_raster_args(name, planes, ids, counts, intr, sub_px):
     if planes.dtype != torch.float32 or ids.dtype != torch.int32 \
             or counts.dtype != torch.int32:
@@ -242,21 +300,23 @@ def _check_raster_args(name, planes, ids, counts, intr, sub_px):
     _kernels.require_cuda(name, planes, ids, counts)
     B, nc = planes.shape[:2]
     nsy, nsx = _subtile_grid(intr, sub_px)
-    if planes.shape != (B, nc, 12, CHUNK) \
+    if planes.shape != (B, nc, CHUNK, 12) \
             or ids.shape != (B, nsy * nsx, nc) \
             or counts.shape != (B, nsy * nsx):
         raise ValueError(
-            f"{name}: expected planes (B,nc,12,{CHUNK}), ids "
+            f"{name}: expected planes (B,nc,{CHUNK},12), ids "
             f"(B,{nsy * nsx},nc), counts (B,{nsy * nsx}); got "
             f"{tuple(planes.shape)}, {tuple(ids.shape)}, "
             f"{tuple(counts.shape)}")
     if B == 0 or nc == 0:
         raise ValueError(f"{name}: empty batch or mesh")
+    if planes.data_ptr() % 16:
+        raise ValueError(f"{name}: planes must be 16-byte aligned")
     return B, nc
 
 
 def chunk_raster_frame(planes, ids, counts, intr: Intrinsics) -> torch.Tensor:
-    """One pose over 32-px subtiles: planes (1,nc,12,128), ids
+    """One pose over 32-px subtiles: planes (1,nc,128,12), ids
     (1,nsub,nc), counts (1,nsub) from `_prep_chunks_all(sub_px=32)` ->
     depth (H,W), +inf background. A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
