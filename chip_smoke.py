@@ -19,7 +19,8 @@ card at the shapes the path gives it:
             models, 4 tracks, every translation error < 0.05 m, mean
             rotation error < 5 deg, worst < 10 deg; kernels
             chunk_raster_frame, chunk_raster_batched (also on a set of
-            windows made to hurt their coarse cull), depth_edge.
+            windows made to hurt their coarse cull), depth_edge and
+            edge_score (one call a CEM iteration and a retrieval).
   ingest    the VIO scene as the camera delivers it: 240 raw distorted
             600x960 uint8 frames (the scene rendered with the Corvis
             undistorter's output camera and warped by the inverse ATAN
@@ -65,6 +66,7 @@ SEM_WARM = 5               # spawn + settle frames before the timed windows
 RASTER_FLOP_PER_PAIR = 16  # 4 planes x (2 multiplies + 2 adds)
 DEPTH_REL_TOL = 1e-6       # kernel vs plain depth, relative
 EDGE_TOL = 1e-6            # kernel vs plain edge map, absolute
+SCORE_TOL = 1e-4           # edge_score vs plain: sums in another order
 
 # ingest scene
 REMAP_REL_TOL = 1e-5       # kernel vs plain remap, f32, of the value range
@@ -189,6 +191,82 @@ def compare_surface(got, ref, what):
     check(far <= 1e-3, f"{what}: {far} of common pixels differ")
 
 
+def tie_frame():
+    """A 200x300 frame of identical step corners, one in each of 160
+    16-px cells (equal scores across cells), and two in one cell (equal
+    scores inside it)."""
+    import numpy as np
+
+    img = np.zeros((200, 300), np.float32)
+    for cy in range(1, 11):
+        for cx in range(1, 17):
+            img[cy * 16 + 6:cy * 16 + 11, cx * 16 + 6:cx * 16 + 11] = 100.0
+    img[66:71, 100:105] = 100.0
+    return img
+
+
+def cell_pick_checks(img, corner_cells, corner_score_plain, cell_best_plain):
+    """K1's per-cell pick equals cell_best_plain exactly, scores and
+    indices, on the bench frame (cells 32, 16, 12) and on a frame built
+    with ties (cells 16, 12); the map beside it equals plain within 1e-4
+    of its largest score, as corner_score's does. Returns the number of
+    cells checked."""
+    import torch
+
+    checked = 0
+    frames = [(img, c) for c in (32, 16, 12)]
+    ties = torch.as_tensor(tie_frame(), device=img.device)
+    frames += [(ties, 16), (ties, 12)]
+    for frame, cell in frames:
+        score, best, idx, xy = corner_cells(frame, cell)
+        ref = corner_score_plain(frame)
+        pb, pi = cell_best_plain(ref, cell)
+        torch.cuda.synchronize()
+        e = float((score - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.max()))
+        same = bool(torch.equal(best, pb)) and bool(torch.equal(idx, pi))
+        Wc = (frame.shape[1] // cell) * cell
+        flat = torch.clamp(idx, min=0)
+        xy_ok = bool(torch.equal(xy[..., 0], (flat % Wc).float())
+                     and torch.equal(xy[..., 1], (flat // Wc).float()))
+        log(f"K1 cell pick, {tuple(frame.shape)} cell {cell}: map max "
+            f"|kernel - plain| = {e:.3e}; scores and indices of "
+            f"{best.numel()} cells equal to cell_best_plain: {same}; "
+            f"{int((idx >= 0).sum())} cells hold a corner")
+        check(e <= tol, f"corner_cells map disagrees: {e}")
+        check(same and xy_ok, f"K1 cell pick differs at cell {cell}")
+        checked += best.numel()
+    vals = corner_cells(ties, 16)[1]
+    check(int((vals == vals.max()).sum()) > 1, "the tie frame has no ties")
+    return checked
+
+
+def old_cell_chain(img, cell, corner_score, cell_best_plain):
+    """The detection's per-cell pick as the path ran it before the pick
+    moved into K1: the map from the kernel, then PyTorch ops."""
+    import torch
+
+    best, idx = cell_best_plain(corner_score(img), cell)
+    flat = torch.clamp(idx, min=0)
+    Wc = (img.shape[1] // cell) * cell
+    return best, idx, torch.stack([flat % Wc, flat // Wc], -1).float()
+
+
+def old_score_chain(d, occ, dt, obs, mass):
+    """The CEM's score as the path ran it before edge_score: depth_edge on
+    the composited windows and on the occluders, then the max-pool,
+    chamfer and coverage as PyTorch ops."""
+    import torch
+
+    from visma_tpu_torch.image.edges import depth_edge
+    from visma_tpu_torch.render.likelihood import symmetric_edge_score
+
+    o = occ.unsqueeze(-3)
+    a = torch.clamp(depth_edge(torch.minimum(d, o)) - depth_edge(o), min=0.0)
+    return symmetric_edge_score(a, dt.unsqueeze(-3), obs.unsqueeze(-3),
+                                obs_mass=mass)
+
+
 def vio_phase(dev, kernels):
     """Kernels K1, K2 against their plain versions and the VIO bench scene
     through VioPipeline.run."""
@@ -197,7 +275,8 @@ def vio_phase(dev, kernels):
 
     from visma_tpu_torch.filter.config import FilterConfig
     from visma_tpu_torch.filter.msckf import check_health
-    from visma_tpu_torch.frontend.detect import (corner_score,
+    from visma_tpu_torch.frontend.detect import (cell_best_plain,
+                                                 corner_cells, corner_score,
                                                  corner_score_plain,
                                                  detect_features)
     from visma_tpu_torch.frontend.klt_fused import (lk_level, lk_level_plain,
@@ -226,7 +305,8 @@ def vio_phase(dev, kernels):
     log(f"synthesised {N_FRAMES} frames at 500x960 in "
         f"{time.time() - t0:.1f} s")
 
-    # K1 against its plain version on a bench frame
+    # K1 against its plain version on a bench frame: the map alone, and
+    # the map with the per-cell pick of the path's detection (cell 32)
     img = torch.as_tensor(frames[1], device=dev)
     got = corner_score(img)
     ref = corner_score_plain(img)
@@ -236,18 +316,41 @@ def vio_phase(dev, kernels):
     log(f"K1 corner_score: max |kernel - plain| = {err:.3e} "
         f"(tol {tol:.3e}), {int((got > 0).sum())} corners")
     check(err <= tol, f"corner_score disagrees with its plain version: {err}")
-    k1_ms = cuda_ms(lambda: corner_score(img))
-    k1_plain_ms = cuda_ms(lambda: corner_score_plain(img))
-    # bytes: the frame read once, the score map written once; ~60 flop/px
-    k1_bound, k1_by = bound(2 * nbytes(img), 60 * img.numel())
-    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, "
-        f"bound {k1_bound:.5f} ms ({k1_by})")
+    k1_cells = cell_pick_checks(img, corner_cells, corner_score_plain,
+                                cell_best_plain)
+    k1_ms = cuda_ms(lambda: corner_cells(img, 32))
+    k1_graph = graph_ms(lambda: corner_cells(img, 32))
+    k1_plain_ms = cuda_ms(lambda: cell_best_plain(corner_score_plain(img), 32))
+    chain_ms = cuda_ms(lambda: old_cell_chain(img, 32, corner_score,
+                                              cell_best_plain))
+    chain_graph = graph_ms(lambda: old_cell_chain(img, 32, corner_score,
+                                                  cell_best_plain))
+    map_ms = cuda_ms(lambda: corner_score(img))
+    map_graph = graph_ms(lambda: corner_score(img))
+    # bytes: the frame read once, the map and the cells' picks written
+    # once; ~60 flop a pixel
+    _, best, idx, xy = corner_cells(img, 32)
+    k1_bound, k1_by = bound(2 * nbytes(img) + nbytes(best, idx, xy),
+                            60 * img.numel())
+    log(f"K1 time, one 500x960 frame with the pick of cell 32: kernel "
+        f"{k1_ms:.4f} ms through the wrapper ({k1_graph:.4f} replayed from a "
+        f"CUDA graph); the map alone {map_ms:.4f} ({map_graph:.4f}); the "
+        f"chain it replaces (the map, then the cell pick in PyTorch ops) "
+        f"{chain_ms:.4f} ({chain_graph:.4f} from a graph); plain "
+        f"{k1_plain_ms:.4f} ms; bound {k1_bound:.5f} ms ({k1_by})")
     kernels.append({"name": "corner_score", "route": "cuda",
                     "source": "visma_tpu_torch/csrc/corner_score.cu",
                     "replaces": "visma_tpu/frontend/detect.py:30",
                     "max_abs_err": err, "ms": k1_ms,
                     "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-                    "bound_by": k1_by, "library_ms": None})
+                    "bound_by": k1_by, "library_ms": None,
+                    "shape": "one 500x960 frame, the map and the pick of "
+                             "cell 32",
+                    "graph_ms": k1_graph, "map_alone_ms": map_ms,
+                    "map_alone_graph_ms": map_graph,
+                    "replaced_chain_ms": chain_ms,
+                    "replaced_chain_graph_ms": chain_graph,
+                    "cells_checked": k1_cells})
 
     # K2 level by level, lk_track and track_features_fused against their
     # plain versions on two bench frames (K = 96, 4 levels)
@@ -689,7 +792,101 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
                     "replaces": "visma_tpu/image/edges.py:87",
                     "max_abs_err": k5_err, "ms": k5_ms,
                     "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-                    "bound_by": k5_by, "library_ms": None})
+                    "bound_by": k5_by, "library_ms": None,
+                    "shape": f"{tuple(joint.shape)}",
+                    "graph_ms": graph_ms(lambda: depth_edge(joint),
+                                         reps=reps)})
+
+    edge_score_checks(mapper, intr, roi, mean, mi, origins,
+                      out.reshape(n, n_hyp, *roi), occ_w, kernels, reps)
+
+
+def edge_score_checks(mapper, intr, roi, mean, mi, origins, settled, occ_w,
+                      kernels, reps):
+    """The fused score against its plain version on the shapes of the path:
+    the settled iteration's real windows (`settled` (n, S, *roi) hypothesis
+    depths and their occluder windows occ_w), the spawn CEM's 48 windows an
+    object, full frames with the evidence shared by all objects, and
+    windows with no occluder (retrieval's form); every pair of launches
+    bit-identical. Then its time at the settled shape beside the chain it
+    replaced."""
+    import torch
+
+    from visma_tpu_torch.render import raster as rs
+    from visma_tpu_torch.render.likelihood import (edge_distance_transform,
+                                                   edge_score,
+                                                   edge_score_plain)
+    from visma_tpu_torch.image.edges import depth_edge
+    from visma_tpu_torch.semantic.cem import CEM_TAU, _crop
+    from visma_tpu_torch.time_kernels import hypothesis_windows
+
+    Cs = mapper.mrenderer.Cs
+    n = mean.shape[0]
+    # the evidence: the scene's edges on frame 0, as the CEM sees it
+    frames = rs.rasterize_depth_chunked_multi(Cs, mean, mi, intr)
+    obs = depth_edge(frames.amin(dim=0))
+    dt = edge_distance_transform(obs, iters=int(CEM_TAU) + 6)
+    mass = torch.sum(obs)
+    dt_w, obs_w = _crop(dt, origins, roi), _crop(obs, origins, roi)
+    sp, sp_mi, sp_org = hypothesis_windows(mean, mi, intr, roi, 48, seed=1)
+    spawn = rs.rasterize_depth_chunked_multi_roi(
+        Cs, sp, sp_mi, sp_org, intr, roi).reshape(n, 48, *roi)
+    others = torch.stack([frames[[j for j in range(n) if j != i]].amin(dim=0)
+                          for i in range(n)])
+    H, W = intr.rows, intr.cols
+    cases = [("settled iteration", (settled, occ_w, dt_w, obs_w, mass)),
+             ("spawn iteration", (spawn, occ_w, dt_w, obs_w, mass)),
+             ("full frames", (frames[:, None], others, dt.expand(n, H, W),
+                              obs.expand(n, H, W), mass)),
+             ("no occluder", (settled[:1], None, dt_w[:1], obs_w[:1], None))]
+    worst = 0.0
+    for what, args in cases:
+        got, again = edge_score(*args[:4], obs_mass=args[4]), \
+            edge_score(*args[:4], obs_mass=args[4])
+        ref = edge_score_plain(*args[:4], obs_mass=args[4])
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        same = bool(torch.equal(got, again))
+        log(f"edge_score, {what} {tuple(args[0].shape)}: max |kernel - "
+            f"plain| = {err:.3e} (tol {SCORE_TOL:.0e}), two launches "
+            f"bit-identical: {same}, scores {float(ref.min()):.4f}.."
+            f"{float(ref.max()):.4f}")
+        check(err <= SCORE_TOL, f"edge_score disagrees on {what}: {err}")
+        check(same, f"edge_score is not repeatable on {what}")
+        check(bool(torch.isfinite(got).all()) and float(ref.std()) > 0,
+              f"edge_score: degenerate scores on {what}")
+        worst = max(worst, err)
+
+    args = (settled, occ_w, dt_w, obs_w)
+    chain = old_score_chain(*args, mass)
+    torch.cuda.synchronize()
+    chain_err = float((edge_score(*args, obs_mass=mass) - chain).abs().max())
+    check(chain_err <= SCORE_TOL, f"the replaced chain disagrees: {chain_err}")
+    ms = cuda_ms(lambda: edge_score(*args, obs_mass=mass), reps=reps)
+    g_ms = graph_ms(lambda: edge_score(*args, obs_mass=mass), reps=reps)
+    plain_ms = cuda_ms(lambda: edge_score_plain(*args, obs_mass=mass),
+                       reps=reps)
+    chain_ms = cuda_ms(lambda: old_score_chain(*args, mass), reps=reps)
+    chain_g = graph_ms(lambda: old_score_chain(*args, mass), reps=reps)
+    # bytes: every depth window read once, each object's occluder, dt and
+    # evidence windows once, the scores written once; ~50 flop a pixel
+    scores = edge_score(*args, obs_mass=mass)
+    b_ms, b_by = bound(nbytes(*args, mass, scores), 50 * settled.numel())
+    log(f"edge_score time {tuple(settled.shape)} with occluders: kernel "
+        f"{ms:.4f} ms ({g_ms:.4f} replayed from a CUDA graph), plain "
+        f"{plain_ms:.4f} ms, the chain it replaced (depth_edge x 2 + the "
+        f"max-pool, chamfer and coverage ops) {chain_ms:.4f} ms ({chain_g:.4f}"
+        f" from a graph), bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes(*args, mass, scores):.3e} B)")
+    kernels.append({"name": "edge_score", "route": "cuda",
+                    "source": "visma_tpu_torch/csrc/depth_edge.cu",
+                    "replaces": "visma_tpu/image/edges.py:87",
+                    "fuses": "visma_tpu/render/likelihood.py:120-155",
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "shape": f"{tuple(settled.shape)} with occluders",
+                    "graph_ms": g_ms, "replaced_chain_ms": chain_ms,
+                    "replaced_chain_graph_ms": chain_g})
 
 
 def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
@@ -809,16 +1006,15 @@ def expected_semantic_launches(n_frames_rendered, n_objects, n_stepped,
     """What the schedule implies, with occluders rendered in every
     iteration (the scene's footprints overlap): ground truth = one
     chunk_raster_frame a pose and one depth_edge for all frames; each
-    retrieval = one batched raster + one depth_edge; each CEM iteration =
+    retrieval = one batched raster + one edge_score; each CEM iteration =
     one batched raster for the occluder windows and one for the hypothesis
-    windows, one depth_edge for the composited windows and one for the
-    occluders."""
+    windows, and one edge_score for all windows."""
     spawn_frames = min(mapper.settle_age, n_stepped)
     iters = (spawn_frames * mapper.cem_iters
              + (n_stepped - spawn_frames) * mapper.settled_iters)
     return {"chunk_raster_frame": n_frames_rendered * n_objects,
             "chunk_raster_batched": n_objects + 2 * iters,
-            "depth_edge": 1 + n_objects + 2 * iters}
+            "depth_edge": 1, "edge_score": n_objects + iters}
 
 
 def semantic_phase(dev, kernels):
@@ -830,6 +1026,7 @@ def semantic_phase(dev, kernels):
                                                        bench_scene)
     from visma_tpu_torch.render import raster as rs
     from visma_tpu_torch.render.camera import Intrinsics
+    from visma_tpu_torch.render.likelihood import edge_score
     from visma_tpu_torch.semantic import SemanticMapper
 
     intr = Intrinsics(**BENCH_INTRINSICS)
@@ -867,7 +1064,8 @@ def semantic_phase(dev, kernels):
                 f"({w.filename}:{w.lineno})")
         return len(hits)
 
-    counted = (rs.chunk_raster_frame, rs.chunk_raster_batched, depth_edge)
+    counted = (rs.chunk_raster_frame, rs.chunk_raster_batched, depth_edge,
+               edge_score)
     for fn in counted:
         fn.launches = 0
     res = semantic_run(mapper, intr, names, SEM_FRAMES, SEM_WINDOW, SEM_WARM,

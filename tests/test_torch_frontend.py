@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import visma_tpu.frontend.klt_fused as JKF
 import visma_tpu.frontend.tracker as JTR
@@ -141,6 +142,69 @@ class TestDetect:
         np.testing.assert_array_equal(_np(vt), np.asarray(vj))
         np.testing.assert_array_equal(_np(xt), np.asarray(xj))
         np.testing.assert_allclose(_np(st), np.asarray(sj), rtol=1e-4)
+
+
+def _cell_oracle(score, cell):
+    """Loop oracle of the per-cell pick: per cell, the best score among
+    pixels > 0 (0 if none) and the last linear index row * Wc + col that
+    holds it (-1 if none), walking the cell in row-major order."""
+    H, W = score.shape
+    gh, gw = H // cell, W // cell
+    Wc = gw * cell
+    best = np.zeros((gh, gw), np.float32)
+    idx = np.full((gh, gw), -1, np.int32)
+    for cy in range(gh):
+        for cx in range(gw):
+            for y in range(cy * cell, (cy + 1) * cell):
+                for x in range(cx * cell, (cx + 1) * cell):
+                    v = score[y, x]
+                    if v > 0 and v >= best[cy, cx]:
+                        best[cy, cx], idx[cy, cx] = v, y * Wc + x
+    return best, idx
+
+
+class TestCellBest:
+    @settings(max_examples=30, deadline=None)
+    @given(data=st.data(), cell=st.sampled_from([12, 16, 32]))
+    def test_matches_loop_oracle(self, data, cell):
+        """Score maps full of ties and zeros (values from a five-element
+        set), H and W not multiples of the cell."""
+        H = data.draw(st.integers(cell, 3 * cell + 7), label="H")
+        W = data.draw(st.integers(cell, 3 * cell + 7), label="W")
+        seed = data.draw(st.integers(0, 2 ** 31 - 1), label="seed")
+        rng = np.random.default_rng(seed)
+        score = rng.choice(np.float32([0.0, 0.0, 0.25, 1.5, 3.0, -1.0]),
+                           size=(H, W)).astype(np.float32)
+        best, idx = tdet.cell_best_plain(_t(score), cell)
+        ref_best, ref_idx = _cell_oracle(score, cell)
+        np.testing.assert_array_equal(_np(best), ref_best)
+        np.testing.assert_array_equal(_np(idx), ref_idx)
+
+    @pytest.mark.parametrize("cell", [12, 16, 32])
+    def test_corner_cells_on_the_cpu(self, cell):
+        """corner_cells on a CPU tensor: the plain map, its cell picks and
+        their pixel coordinates, as detect_features takes them."""
+        img = textured_image(100, 150, seed=4)
+        score, best, idx, xy = tdet.corner_cells(_t(img), cell)
+        np.testing.assert_array_equal(
+            _np(score), _np(tdet.corner_score_plain(_t(img))))
+        ref_best, ref_idx = _cell_oracle(_np(score), cell)
+        np.testing.assert_array_equal(_np(best), ref_best)
+        np.testing.assert_array_equal(_np(idx), ref_idx)
+        Wc = (150 // cell) * cell
+        flat = np.maximum(ref_idx, 0)
+        np.testing.assert_array_equal(_np(xy), np.stack(
+            [flat % Wc, flat // Wc], -1).astype(np.float32))
+
+    @pytest.mark.parametrize("cell", [12, 32])
+    def test_detect_features_matches_jax_at_other_cells(self, cell):
+        img = textured_image(seed=5)
+        xj, sj, vj = j_detect(jnp.asarray(img), 40, cell=cell,
+                              use_pallas=False)
+        xt, st_, vt = tdet.detect_features(_t(img), 40, cell=cell)
+        np.testing.assert_array_equal(_np(vt), np.asarray(vj))
+        np.testing.assert_array_equal(_np(xt), np.asarray(xj))
+        np.testing.assert_allclose(_np(st_), np.asarray(sj), rtol=1e-4)
 
 
 def _lk_problem(win=24, r=5, seed=0):

@@ -15,7 +15,7 @@ from visma_tpu_torch.image import edges as ted, remap as trm
 from visma_tpu_torch.image.undistort import corvis_undistorter
 from visma_tpu_torch.io.procedural import bench_mesh_db
 from visma_tpu_torch.io.synthetic_semantic import BENCH_INTRINSICS
-from visma_tpu_torch.render import raster as trs
+from visma_tpu_torch.render import likelihood as tlk, raster as trs
 from visma_tpu_torch.render.camera import Intrinsics
 
 pytestmark = pytest.mark.cuda
@@ -380,6 +380,145 @@ def test_depth_edge_matches_plain(dev, shape):
     assert got.shape == d.shape
     assert float((got - ref).abs().max()) <= 1e-6
     assert float(ref.max()) == 1.0 and float(ref.sum()) > 10
+
+
+def _plane_depths(rng, shape, inf_share=0.02):
+    """Tilted planes at random offsets with +inf holes, an inf band on top
+    and a -1 band on the left: what a render of a few objects looks like to
+    the stencil."""
+    H, W = shape[-2:]
+    yy, xx = np.mgrid[0:H, 0:W]
+    n = int(np.prod(shape[:-2]))
+    d = (2.0 + 0.002 * xx + 0.001 * yy)[None] \
+        + rng.uniform(0, 1.5, (n, 1, 1))
+    d = np.where(rng.uniform(size=d.shape) < inf_share, np.inf, d)
+    step = rng.integers(H // 4, H // 2)
+    d[:, step:step + H // 5] += rng.uniform(0.2, 0.8, (n, 1, 1))
+    d[:, : H // 6] = np.inf
+    d[:, :, : W // 7] = -1.0
+    return d.reshape(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,occluded,radius,mass", [
+    ((4, 24, 256, 384), True, 2, "tensor"),     # a settled iteration
+    ((4, 48, 256, 384), True, 2, "tensor"),     # the spawn CEM
+    ((1, 12, 256, 384), False, 2, None),        # retrieval: no occluder
+    ((2, 3, 500, 960), True, 1, 812.5),         # full frames
+    ((2, 3, 37, 53), True, 0, None),            # width not a multiple of 4
+    ((3, 2, 45, 70), False, 1, "per object")])
+def test_edge_score_matches_plain(dev, shape, occluded, radius, mass):
+    """The fused score against the composition of plain versions: 1e-4
+    absolute (its sums are taken in another order than torch.sum), and
+    bit-identical across two launches."""
+    rng = np.random.default_rng(5)
+    n, S, H, W = shape
+    d = torch.as_tensor(_plane_depths(rng, shape), device=dev)
+    occ = torch.as_tensor(_plane_depths(rng, (n, H, W), 0.3), device=dev) \
+        if occluded else None
+    obs = torch.as_tensor((rng.uniform(size=(n, H, W)) < 0.05)
+                          * rng.uniform(0.3, 1.0, (n, H, W)),
+                          dtype=torch.float32, device=dev)
+    dt = torch.as_tensor(rng.uniform(0, 14, (n, H, W)), dtype=torch.float32,
+                         device=dev)
+    if mass == "tensor":
+        mass = obs.sum() * 1.5
+    elif mass == "per object":
+        mass = obs.sum(dim=(1, 2)) + 3.0
+    n0 = tlk.edge_score.launches
+    got = tlk.edge_score(d, occ, dt, obs, radius=radius, obs_mass=mass)
+    again = tlk.edge_score(d, occ, dt, obs, radius=radius, obs_mass=mass)
+    ref = tlk.edge_score_plain(d, occ, dt, obs, radius=radius,
+                               obs_mass=mass)
+    torch.cuda.synchronize()
+    assert tlk.edge_score.launches == n0 + 2
+    assert got.shape == (n, S)
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert float(ref.std()) > 0          # the windows differ
+
+
+def test_edge_score_broadcast_evidence_and_routing(dev):
+    """dt and evidence given once for all objects (an expanded view, as
+    the full-frame CEM passes them) and occlusion_aware_edge_score's
+    routing: one launch, the same scores."""
+    rng = np.random.default_rng(6)
+    n, S, H, W = 3, 4, 120, 200
+    d = torch.as_tensor(_plane_depths(rng, (n, S, H, W)), device=dev)
+    occ = torch.as_tensor(_plane_depths(rng, (n, H, W), 0.3), device=dev)
+    obs = torch.as_tensor((rng.uniform(size=(H, W)) < 0.05) * 1.0,
+                          dtype=torch.float32, device=dev)
+    dt = torch.as_tensor(rng.uniform(0, 14, (H, W)), dtype=torch.float32,
+                         device=dev)
+    ref = tlk.edge_score_plain(d, occ, dt.expand(n, H, W),
+                               obs.expand(n, H, W), obs_mass=obs.sum())
+    n0 = tlk.edge_score.launches
+    got = tlk.occlusion_aware_edge_score(d, occ, dt.expand(n, H, W),
+                                         obs.expand(n, H, W),
+                                         obs_mass=obs.sum())
+    torch.cuda.synchronize()
+    assert tlk.edge_score.launches == n0 + 1
+    assert float((got - ref).abs().max()) <= 1e-4
+    with pytest.raises(ValueError):
+        tlk.edge_score(d, occ, dt, obs, radius=3)
+    with pytest.raises(ValueError):
+        tlk.edge_score(d, occ[:2], dt, obs)
+
+
+def _tie_frame():
+    """Identical step corners in many cells (equal cell scores) and two
+    identical corners in one cell (equal scores inside a cell)."""
+    img = np.zeros((200, 300), np.float32)
+    for cy in range(1, 11):
+        for cx in range(1, 17):
+            y, x = cy * 16 + 6, cx * 16 + 6
+            img[y:y + 5, x:x + 5] = 100.0
+    img[66:71, 100:105] = 100.0
+    return img
+
+
+@pytest.mark.parametrize("shape,cell", [((500, 960), 32), ((500, 960), 12),
+                                        ((131, 77), 16), ("ties", 16),
+                                        ("ties", 12)])
+def test_corner_cells_matches_plain(dev, shape, cell):
+    """One launch gives the map and the per-cell pick: the map equals the
+    plain map as corner_score's does, and the picks equal cell_best_plain
+    of that map exactly (scores and indices), ties included."""
+    if shape == "ties":
+        img = torch.as_tensor(_tie_frame(), device=dev)
+    else:
+        img = _texture(*shape, seed=2).to(dev)
+    n0 = tdet.corner_score.launches
+    score, best, idx, xy = tdet.corner_cells(img, cell)
+    torch.cuda.synchronize()
+    assert tdet.corner_score.launches == n0 + 1
+    ref = tdet.corner_score_plain(img)
+    assert float((score - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.max()))
+    pb, pi = tdet.cell_best_plain(score, cell)
+    assert torch.equal(best, pb) and torch.equal(idx, pi)
+    Wc = (img.shape[1] // cell) * cell
+    flat = torch.clamp(idx, min=0)
+    assert torch.equal(xy[..., 0], (flat % Wc).float())
+    assert torch.equal(xy[..., 1], (flat // Wc).float())
+    assert int((idx >= 0).sum()) > 10
+    if shape == "ties":
+        assert torch.equal(score, ref)
+        vals = best[idx >= 0]
+        assert int((vals == vals.max()).sum()) > 1
+
+
+def test_detect_features_on_the_card_equals_the_host(dev):
+    img = _texture(240, 320, seed=3)
+    occ = torch.zeros((240 // 16, 320 // 16), dtype=torch.bool)
+    occ[::3, 1::4] = True
+    for kw in (dict(cell=16), dict(cell=16, occupied=occ), dict(cell=32),
+               dict(cell=12)):
+        on = tdet.detect_features(img.to(dev), 96, **{
+            k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+            for k, v in kw.items()})
+        off = tdet.detect_features(img, 96, **kw)
+        assert torch.equal(on[0].cpu(), off[0]), kw          # positions
+        assert torch.equal(on[2].cpu(), off[2]), kw          # validity
+        torch.testing.assert_close(on[1].cpu(), off[1], rtol=1e-5, atol=0)
 
 
 def test_semantic_wrappers_raise_on_bad_input(dev):

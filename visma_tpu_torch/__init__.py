@@ -15,7 +15,8 @@ copies. The layout mirrors the reference:
              procedural meshes, OBJ/PLY (numpy)
   filter/    MSCKF: config, state, IMU propagation, triangulation, update;
              feed.pack_frames (numpy)
-  frontend/  pyramid, corner detection (kernel csrc/corner_score.cu),
+  frontend/  pyramid, corner detection and the per-cell pick (kernel
+             csrc/corner_score.cu),
              fused pyramidal LK (kernel csrc/lk_level.cu), the windowed
              tracker (klt.py, plain PyTorch), track management
   image/     undistortion: ATAN / radial-tangential tables (undistort.py)
@@ -24,7 +25,8 @@ copies. The layout mirrors the reference:
              depth_edge (kernel csrc/depth_edge.cu)
   render/    camera, the chunked plane rasterizer (kernels
              csrc/chunk_raster.cu: one frame, and a batch of ROI windows),
-             Renderer / MultiMeshRenderer, the edge likelihood
+             Renderer / MultiMeshRenderer, the edge likelihood (edge_score:
+             kernel vt_edge_score in csrc/depth_edge.cu)
   semantic/  batched CEM pose refinement, SemanticMapper
   pipeline.py  VioPipeline: images + IMU -> trajectory
   cli/         undistort_images, run_vio, example_load, example_dump

@@ -43,8 +43,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (img, out, H, W, border, min_response, stream)
-    "vt_corner_score": (_P, _P, _I, _I, _I, _F, _P),
+    # (img, out, H, W, border, min_response, cells or NULL, cell,
+    #  cell_score, cell_idx, cell_xy, vec, stream)
+    "vt_corner_score": (_P, _P, _I, _I, _I, _F, _P, _I, _P, _P, _P, _I, _P),
     # (imgT, imgI, H, W, orgT, orgI, stT, sI0, u, stat, K, win, radius,
     #  iters, stream)
     "vt_lk_level": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -56,8 +57,13 @@ _SIGNATURES = {
     "vt_chunk_raster_frame": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # (planes, ids, counts, out, B, nc, H, W, inv_near, inv_far, stream)
     "vt_chunk_raster_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
-    # (depth, out, B, H, W, lo, range, border, stream)
-    "vt_depth_edge": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    # (depth, out, B, H, W, lo, range, border, vec, stream)
+    "vt_depth_edge": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    # (depth, occ or NULL, occ_stride, dt, dt_stride, obs, obs_stride,
+    #  mass or NULL, mass_stride, mass_value, partial, scores, n, S, H, W,
+    #  radius, lo, range, border, tau, coverage_weight, vec, stream)
+    "vt_edge_score": (_P, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _P, _I, _I,
+                      _I, _I, _I, _F, _F, _I, _F, _F, _I, _P),
     # (img, table, out, B, H, W, C, oh, ow, is_u8, stream)
     "vt_bilinear_remap": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -150,6 +156,12 @@ def stream_of(t: torch.Tensor) -> int:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def vec4(W: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of width W can be read as float4: W a multiple of 4 and
+    every tensor's data 16-byte aligned."""
+    return int(W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

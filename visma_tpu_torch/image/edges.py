@@ -85,7 +85,7 @@ def depth_edge(depth: torch.Tensor, lo: float = THRESH_LOW,
     out = torch.empty_like(d)
     rc = _kernels.library().vt_depth_edge(
         d.data_ptr(), out.data_ptr(), B, H, W, float(lo), float(hi - lo),
-        BORDER, _kernels.stream_of(d))
+        BORDER, _kernels.vec4(W, d, out), _kernels.stream_of(d))
     _kernels.check(rc, "depth_edge")
     depth_edge.launches += 1
     return out

@@ -2,7 +2,8 @@
 visma_tpu/render)."""
 
 from visma_tpu_torch.render.camera import Intrinsics, to_gl_depth
-from visma_tpu_torch.render.likelihood import (occlusion_aware_edge_score,
+from visma_tpu_torch.render.likelihood import (edge_score,
+                                               occlusion_aware_edge_score,
                                                scene_depth, score_hypotheses)
 from visma_tpu_torch.render.raster import (MultiMeshRenderer, Renderer,
                                            rasterize_depth_brute,
@@ -13,5 +14,5 @@ __all__ = [
     "Intrinsics", "to_gl_depth", "Renderer", "MultiMeshRenderer",
     "rasterize_depth_brute", "rasterize_depth_chunked",
     "sort_faces_morton", "scene_depth", "score_hypotheses",
-    "occlusion_aware_edge_score",
+    "edge_score", "occlusion_aware_edge_score",
 ]

@@ -6,9 +6,10 @@ se(3), renders and scores all of them in one batch, and refits the
 sampling distribution to the elite fraction. The batched form refines all
 objects jointly: per iteration one `chunk_raster_batched` launch renders
 every object's hypothesis windows (and one more the occluder windows),
-one `depth_edge` launch takes their edges, and the scores are batched
-reductions. The loop stays on the device: nothing in it reads a value
-back to the host.
+and one `edge_score` call scores them all: edges of the composited
+windows minus the occluders' own, chamfer and coverage, in one kernel.
+The loop stays on the device: nothing in it reads a value back to the
+host.
 
 What the reference has only for the TPU and the port has no counterpart
 of: the pose-group cap (`_smem_group_cap`, the `G` of
@@ -38,10 +39,8 @@ import torch
 from torch.profiler import record_function
 
 from visma_tpu_torch.geom.lie import SE3
-from visma_tpu_torch.image.edges import depth_edge
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
-                                               occlusion_aware_edge_score,
-                                               symmetric_edge_score)
+                                               occlusion_aware_edge_score)
 from visma_tpu_torch.render.raster import (
     rasterize_depth_chunked_multi, rasterize_depth_chunked_multi_roi)
 from visma_tpu_torch.utils.misc import resolve_device
@@ -100,14 +99,10 @@ def refine_pose_cem(renderer, observed_edges: torch.Tensor,
         # frame (object center), not the camera origin
         hyps = (SE3(mean.R[None], mean.t[None])
                 @ SE3.exp(torch.as_tensor(xi, device=dev))).matrix3x4()
-        if occluder_depth is not None:
-            scores = occlusion_aware_edge_score(
-                renderer.render_depth(hyps),
-                torch.as_tensor(occluder_depth, dtype=torch.float32,
-                                device=dev), dt, obs, tau=tau)
-        else:
-            scores = symmetric_edge_score(renderer.render_edge(hyps), dt,
-                                          obs, tau=tau)
+        occ = None if occluder_depth is None else torch.as_tensor(
+            occluder_depth, dtype=torch.float32, device=dev)
+        scores = occlusion_aware_edge_score(renderer.render_depth(hyps), occ,
+                                            dt, obs, tau=tau)
         scores = scores.cpu().numpy()
 
         order = np.argsort(scores)
@@ -273,7 +268,6 @@ def retrieval_scores(mrenderer, roi, hyps, mi, org1, dt, em, box):
     origins = org1[None].expand(B, 2)
     d = rasterize_depth_chunked_multi_roi(mrenderer.Cs, hyps, mi, origins,
                                           mrenderer.intr, roi)
-    edges = depth_edge(d)
     dt_w = _crop(dt, org1[None], roi)[0]
     em_w = _crop(em, org1[None], roi)[0]
     dev = hyps.device
@@ -283,8 +277,8 @@ def retrieval_scores(mrenderer, roi, hyps, mi, org1, dt, em, box):
                                 device=dev)[None, :]
     in_box = ((xx >= box[0]) & (xx < box[2])
               & (yy >= box[1]) & (yy < box[3]))
-    return symmetric_edge_score(
-        edges, dt_w, torch.where(in_box, em_w, torch.zeros_like(em_w)))
+    return occlusion_aware_edge_score(
+        d, None, dt_w, torch.where(in_box, em_w, torch.zeros_like(em_w)))
 
 
 def _draw(generator, shape, device) -> torch.Tensor:

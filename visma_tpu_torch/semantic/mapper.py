@@ -35,7 +35,7 @@ from torch.profiler import record_function
 
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
-                                               symmetric_edge_score)
+                                               occlusion_aware_edge_score)
 from visma_tpu_torch.render.raster import (MultiMeshRenderer,
                                            rasterize_depth_chunked_multi)
 from visma_tpu_torch.semantic.cem import (CEM_TAU, _cem_fused_body, _sigma6,
@@ -336,9 +336,9 @@ class SemanticMapper:
             # one full-frame pass over all (mesh, yaw) hypotheses
             box_mask = np.zeros((H, W), np.float32)
             box_mask[y0:y1, x0:x1] = 1.0
-            edges = self.mrenderer.render_edge(hyps_d, mi)
-            dev_scores = symmetric_edge_score(edges, dt,
-                                              em * self._f32(box_mask))
+            dev_scores = occlusion_aware_edge_score(
+                self.mrenderer.render_depth(hyps_d, mi), None, dt,
+                em * self._f32(box_mask))
         scores = dev_scores.cpu().numpy().reshape(Mc, B) \
             + prior[None, :] + aspect_pen
         m, b = np.unravel_index(int(np.argmin(scores)), scores.shape)
@@ -378,8 +378,8 @@ class SemanticMapper:
         Profiler ranges (visma_tpu_torch/profile_semantic.py reads them):
         `semantic.spawn` and `semantic.refine` here; inside the CEM
         `semantic.edt`, `semantic.occluders`, `semantic.raster` (setup +
-        chunk_raster_batched) and `semantic.score` (depth_edge + the
-        chamfer and coverage reductions)."""
+        chunk_raster_batched) and `semantic.score` (edge_score: edges,
+        chamfer and coverage in one kernel call)."""
         H, W = self.intr.rows, self.intr.cols
         if tuple(edge_map.shape) != (H, W):
             if isinstance(edge_map, torch.Tensor):

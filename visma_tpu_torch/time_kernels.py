@@ -1,23 +1,33 @@
-"""Times of the tracker's and the rasterizer's entry points on the card.
+"""Times of the frontend's, the rasterizer's and the score's entry points
+on the card.
 
     python -m visma_tpu_torch.time_kernels
 
 Prints the card's name and power limit and one JSON line with, in ms by
-CUDA events over 20 back-to-back calls after 3 warm-ups:
+CUDA events over 20 back-to-back calls after 3 warm-ups (`_graph_ms`: the
+same 20 calls captured in a CUDA graph and replayed, without the host):
 
   track_features_fused  one tracked frame: K = 96 features, 4 levels and
                         the forward-backward pass, two 500x960 frames of
                         the VIO bench scene's imagery
+  detect_features       one detection on such a frame: 96 features, cell
+                        32 (the corner map, the per-cell pick, the sort)
+  corner_score_graph    K1's map of such a frame
+  occlusion_aware_edge_score (and _graph)
+                        the score of one settled CEM iteration: 96
+                        hypothesis windows of 256x384 against their
+                        objects' occluder, distance and evidence windows
   prep_chunks_all       the triangle setup and binning of one CEM
                         iteration's hypothesis batch: 96 ROI windows of
                         256x384, 16-px subtiles (`_prep_chunks_all`)
   chunk_raster_batched  K4 on that batch
   chunk_raster_frame    K3 on one 500x960 pose
 
-It goes through names that do not depend on the layout of the plane table
-or on how many launches a tracked frame is, so the same file times an
-older checkout of the package beside this one: to compare two trees, run
-it from each in turns, one after the other on one card.
+It goes through names that do not depend on the layout of the plane table,
+on how many launches a tracked frame, a detection or a score makes, so the
+same file times an older checkout of the package beside this one: to
+compare two trees, run it from each in turns, one after the other on one
+card.
 """
 from __future__ import annotations
 
@@ -27,10 +37,11 @@ import subprocess
 import numpy as np
 import torch
 
-from visma_tpu_torch.frontend.detect import detect_features
+from visma_tpu_torch.frontend.detect import corner_score, detect_features
 from visma_tpu_torch.frontend.klt_fused import track_features_fused
 from visma_tpu_torch.frontend.pyramid import build_pyramid
 from visma_tpu_torch.geom.lie import SE3
+from visma_tpu_torch.image.edges import depth_edge
 from visma_tpu_torch.io.procedural import bench_mesh_db
 from visma_tpu_torch.io.synthetic import SyntheticConfig
 from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
@@ -38,7 +49,9 @@ from visma_tpu_torch.io.synthetic_semantic import (BENCH_INTRINSICS,
                                                    bench_scene)
 from visma_tpu_torch.render import raster as rs
 from visma_tpu_torch.render.camera import Intrinsics
-from visma_tpu_torch.semantic.cem import _roi_origins
+from visma_tpu_torch.render.likelihood import (edge_distance_transform,
+                                               occlusion_aware_edge_score)
+from visma_tpu_torch.semantic.cem import _crop, _others_index, _roi_origins
 
 ROI = (256, 384)
 N_HYP = 24          # hypothesis windows per object in a settled iteration
@@ -58,6 +71,18 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Mean device time of fn() in ms with the host taken out: `reps` calls
+    captured into one CUDA graph, its replays timed by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=replays, warmup=1) / reps
 
 
 def hypothesis_windows(mean, mesh_idx, intr, roi, n_hyp, seed=0):
@@ -98,6 +123,9 @@ def main():
     out = {"card": card, "tracked": int(ok.sum()), "features": int(valid.sum())}
     out["track_features_fused_ms"] = cuda_ms(
         lambda: track_features_fused(prev, cur, pts, valid, levels=4))
+    out["detect_features_ms"] = cuda_ms(lambda: detect_features(prev[0], 96,
+                                                                32))
+    out["corner_score_graph_ms"] = graph_ms(lambda: corner_score(prev[0]))
 
     intr = Intrinsics(**BENCH_INTRINSICS)
     renderer = rs.MultiMeshRenderer(intr)
@@ -119,6 +147,28 @@ def main():
     out["covered_pixels"] = int(torch.isfinite(depth).sum())
     out["chunk_raster_batched_ms"] = cuda_ms(
         lambda: rs.chunk_raster_batched(planes, ids, counts, roi_intr))
+
+    # the score of the iteration: occluder windows of the other objects,
+    # the scene's edges on this frame as the evidence
+    n = mean.shape[0]
+    oi = _others_index(n, dev)
+    occ = rs.rasterize_depth_chunked_multi_roi(
+        renderer.Cs, mean[oi], mi[oi],
+        torch.repeat_interleave(_roi_origins(mean[:, :, 3], intr, ROI),
+                                n - 1, dim=0), intr, ROI
+    ).reshape(n, n - 1, *ROI).amin(dim=1)
+    obs = depth_edge(rs.rasterize_depth_chunked_multi(renderer.Cs, mean, mi,
+                                                      intr).amin(dim=0))
+    dt = edge_distance_transform(obs, iters=16)
+    org = _roi_origins(mean[:, :, 3], intr, ROI)
+    dt_w, obs_w, mass = _crop(dt, org, ROI), _crop(obs, org, ROI), obs.sum()
+    windows = depth.reshape(n, N_HYP, *ROI)
+    def score():
+        return occlusion_aware_edge_score(windows, occ, dt_w, obs_w,
+                                          obs_mass=mass)
+
+    out["occlusion_aware_edge_score_ms"] = cuda_ms(score)
+    out["occlusion_aware_edge_score_graph_ms"] = graph_ms(score)
 
     fp, fi, fc = rs._prep_chunks_all(renderer.Cs[mi[:1]], mean[:1], intr,
                                      sub_px=rs.SUB_FRAME)
