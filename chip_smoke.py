@@ -1129,19 +1129,39 @@ def warp_to_raw(frames, inv_table, dev, chunk=40):
 
 def grid_sample_remap(image, table):
     """The one PyTorch call that computes nearly this function, as a
-    yardstick only: image (B, H, W) f32, table (oh, ow, 2). It differs from
-    bilinear_remap at the frame border (zero padding instead of clamped
-    taps), has no invalid mark and takes no uint8."""
+    yardstick only: image (B, H, W) or (B, H, W, C) f32, table (oh, ow, 2).
+    It differs from bilinear_remap at the frame border (zero padding
+    instead of clamped taps), has no invalid mark and takes no uint8."""
     import torch
     import torch.nn.functional as F
 
-    B, H, W = image.shape
+    B, H, W = image.shape[:3]
+    # channels first, made outside the timed call
+    x = (image.permute(0, 3, 1, 2).contiguous() if image.dim() == 4
+         else image[:, None])
     grid = torch.stack([2.0 * table[..., 0] / (W - 1) - 1.0,
                         2.0 * table[..., 1] / (H - 1) - 1.0], dim=-1)
     # the call wants one grid a frame: made once, outside the timed call
     grid = grid[None].expand(B, *grid.shape).contiguous()
-    return lambda: F.grid_sample(image[:, None], grid, mode="bilinear",
+    return lambda: F.grid_sample(x, grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
+
+
+def remap_source_pixels(table, H, W):
+    """How many pixels of an H x W frame the remap through `table` must
+    read: the union of the four clamped taps of every valid entry."""
+    import torch
+
+    sx, sy = table[..., 0], table[..., 1]
+    ok = sx >= 0
+    x0 = torch.clamp(torch.floor(sx[ok]), 0, W - 2).long()
+    y0 = torch.clamp(torch.nan_to_num(torch.floor(sy[ok]), nan=0.0), 0,
+                     H - 2).long()
+    hit = torch.zeros(H, W, dtype=torch.bool, device=table.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            hit[y0 + dy, x0 + dx] = True
+    return int(hit.sum())
 
 
 def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
@@ -1151,10 +1171,27 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
     import numpy as np
     import torch
 
-    from visma_tpu_torch.image.remap import (bilinear_remap,
-                                             bilinear_remap_plain)
+    from visma_tpu_torch.image.remap import (DIRECT, STAGED, bilinear_remap,
+                                             bilinear_remap_plain,
+                                             remap_footprint_plain,
+                                             remap_tiling)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def plain_branches(img, tab, C=1):
+        tile, budget = remap_tiling(img.dtype, C)
+        return remap_footprint_plain(
+            tab.cpu(), H, W, tile, budget, C=C, itemsize=img.element_size(),
+            aligned=img.data_ptr() % 16 == 0,
+            frames=img.numel() // (H * W * C))[1]
+
+    def remap_branches(img, tab, C=1):
+        """(out, branches) of the kernel; on the CPU, where the wrapper is
+        the plain version, the plain footprint's branches."""
+        if dev.type == "cuda":
+            return bilinear_remap(img, tab, return_branches=True)
+        return bilinear_remap(img, tab), plain_branches(img, tab, C)
+
     rng = np.random.default_rng(3)
     H, W = und.in_rows, und.in_cols
     table = und.remap
@@ -1195,9 +1232,13 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
     rnd = torch.as_tensor(rnd, device=dev)
     err_rnd = 0.0
     for img in (one, raw_u8[:3]):
-        got, ref = bilinear_remap(img, rnd), bilinear_remap_plain(img, rnd)
+        (got, br), ref = (remap_branches(img, rnd),
+                          bilinear_remap_plain(img, rnd))
         part = bilinear_remap(img, rnd[8:40])
         sync()
+        check(torch.equal(br.cpu(), plain_branches(img, rnd))
+              and bool((br == DIRECT).all()),
+              f"random table: branches {br.tolist()} are not all direct")
         e = float((got.float() - ref.float()).abs().max())
         err_rnd = max(err_rnd, e)
         check(e <= REMAP_REL_TOL * 255.0 and bool((got[..., 10, :] == 0).all())
@@ -1206,12 +1247,35 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
         check(bool((part == got[..., 8:40, :]).all()),
               "remap of a table slice differs from the slice of the remap")
     log(f"K6 random table with invalid rows: max |kernel - plain| = "
-        f"{err_rnd:.3e}; table slice == slice of the result")
+        f"{err_rnd:.3e}; table slice == slice of the result; every tile "
+        f"direct, as the plain footprint says")
+
+    # the path's call: which tiles are staged, against the plain footprint
+    outN, br = remap_branches(raw_u8, sliced)
+    refN = bilinear_remap_plain(raw_u8, sliced)
+    sync()
+    want = plain_branches(raw_u8, sliced)
+    n_staged = int((br == STAGED).sum())
+    n_direct = int((br == DIRECT).sum())
+    log(f"K6 the path's call: {n_staged} tiles staged, {n_direct} direct "
+        f"(plain footprint: {int((want == STAGED).sum())} and "
+        f"{int((want == DIRECT).sum())}); against plain: "
+        f"{int((outN != refN).sum())} differing bytes")
+    check(torch.equal(br.cpu(), want), "K6 branches differ from the plain "
+          "footprint on the path's call")
+    check(n_direct == 0, "a tile of the Corvis slice was not staged")
+    check(torch.equal(outN, refN), "K6 path call differs from plain")
+    del refN
 
     # times: one f32 frame, and the path's batch of u8 frames through the
-    # row slice, each with plain, bound and grid_sample
+    # row slice, each with plain, bound and grid_sample. The bound reads of
+    # each frame only the pixels the table reaches.
+    def read_bytes(img, tab):
+        frames = img.numel() // (H * W)    # frames x channels
+        return frames * remap_source_pixels(tab, H, W) * img.element_size()
+
     def work(img, tab, out):
-        return bound(nbytes(img, tab, out),
+        return bound(read_bytes(img, tab) + nbytes(tab, out),
                      REMAP_FLOP_PER_VALUE * out.numel())
 
     out1 = bilinear_remap(one, table)
@@ -1227,8 +1291,8 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
         f"({one_lib_graph:.4f} from a graph), bound {one_bound:.5f} ms "
         f"({one_by})")
 
-    outN = bilinear_remap(raw_u8, sliced)
     n_ms = cuda_ms(lambda: bilinear_remap(raw_u8, sliced), reps=reps)
+    n_graph = graph_ms(lambda: bilinear_remap(raw_u8, sliced), reps=reps)
     n_plain = cuda_ms(lambda: bilinear_remap_plain(raw_u8, sliced), reps=3,
                       warmup=1)
     raw_f32 = raw_u8.to(torch.float32)
@@ -1237,9 +1301,40 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
     n_bound, n_by = work(raw_u8, sliced, outN)
     N = raw_u8.shape[0]
     log(f"K6 time, {N} u8 frames {H}x{W} -> {crop[1]}x{W}: kernel "
-        f"{n_ms:.4f} ms ({n_ms / N:.5f} a frame), plain {n_plain:.3f} ms, "
-        f"grid_sample on the f32 batch {n_lib:.4f} ms, bound {n_bound:.5f} "
-        f"ms ({n_by}; {nbytes(raw_u8, sliced, outN):.3e} B)")
+        f"{n_ms:.4f} ms ({n_ms / N:.5f} a frame; {n_graph:.4f} from a "
+        f"graph), plain {n_plain:.3f} ms, grid_sample on the f32 batch "
+        f"{n_lib:.4f} ms, bound {n_bound:.5f} ms ({n_by}; "
+        f"{read_bytes(raw_u8, sliced) + nbytes(sliced, outN):.4e} B: "
+        f"{remap_source_pixels(sliced, H, W)} source pixels a frame, of "
+        f"{H * W})")
+
+    # the per-file call of cli/undistort_images: one colour frame
+    col1 = col[0].contiguous()
+    out1c, br1c = remap_branches(col1, sliced, 3)
+    sync()
+    check(torch.equal(out1c, bilinear_remap_plain(col1, sliced))
+          and torch.equal(br1c.cpu(), plain_branches(col1, sliced, 3)),
+          "K6 colour frame differs from plain")
+    cli = {"ms": cuda_ms(lambda: bilinear_remap(col1, sliced), reps=reps),
+           "graph_ms": graph_ms(lambda: bilinear_remap(col1, sliced),
+                                reps=reps),
+           "plain_ms": cuda_ms(lambda: bilinear_remap_plain(col1, sliced),
+                               reps=reps),
+           "staged_tiles": int((br1c == STAGED).sum()),
+           "direct_tiles": int((br1c == DIRECT).sum())}
+    col_f32 = col1[None].to(torch.float32)
+    cli["library_ms"] = cuda_ms(grid_sample_remap(col_f32, sliced),
+                                reps=reps)
+    cli["library_graph_ms"] = graph_ms(grid_sample_remap(col_f32, sliced),
+                                       reps=reps)
+    cli["bound_ms"], cli["bound_by"] = work(col1, sliced, out1c)
+    log(f"K6 time, the CLI's per-file frame {tuple(col1.shape)} u8 -> "
+        f"{tuple(out1c.shape)}: kernel {cli['ms']:.4f} ms through the "
+        f"wrapper ({cli['graph_ms']:.4f} from a graph), plain "
+        f"{cli['plain_ms']:.4f} ms, grid_sample on the f32 frame "
+        f"{cli['library_ms']:.4f} ms ({cli['library_graph_ms']:.4f} from a "
+        f"graph), bound {cli['bound_ms']:.5f} ms ({cli['bound_by']}); "
+        f"{cli['staged_tiles']} tiles staged, {cli['direct_tiles']} direct")
     kernels.append({"name": "bilinear_remap", "route": "cuda",
                     "source": "visma_tpu_torch/csrc/bilinear_remap.cu",
                     "replaces": "visma_tpu/image/remap.py:81",
@@ -1247,7 +1342,10 @@ def remap_kernel_checks(dev, und, crop, raw_u8, kernels, reps=20):
                     "plain_ms": n_plain, "bound_ms": n_bound,
                     "bound_by": n_by, "library_ms": n_lib,
                     "shape": f"{N} u8 frames {H}x{W} -> {crop[1]}x{W}",
+                    "graph_ms": n_graph,
+                    "staged_tiles": n_staged, "direct_tiles": n_direct,
                     "u8_differing_bytes": diff_u8,
+                    "cli_frame": cli,
                     "one_f32_frame": {"ms": one_ms, "graph_ms": one_graph,
                                       "plain_ms": one_plain,
                                       "bound_ms": one_bound,
@@ -1348,15 +1446,20 @@ def ingest_run(dev, und, crop, raw_u8, gwc, imu, cfg, levels, cell):
 
     t0 = time.time()
     if dev.type == "cuda":
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-    images = bilinear_remap(raw_u8, sliced).to(torch.float32)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+    images = bilinear_remap(raw_u8, sliced)
     if dev.type == "cuda":
-        ev1.record()
+        ev[1].record()
+    images = images.to(torch.float32)
+    if dev.type == "cuda":
+        ev[2].record()
     sync()
     und_host_ms = (time.time() - t0) * 1e3
-    und_dev_ms = ev0.elapsed_time(ev1) if dev.type == "cuda" else None
+    und_dev_ms = k6_ms = cast_ms = None
+    if dev.type == "cuda":
+        und_dev_ms = ev[0].elapsed_time(ev[2])
+        k6_ms, cast_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     st0 = pipe.init(images[0], R0=gwc[0, :, :3], p0=gwc[0, :, 3],
                     v0=imu["v0"])
     final, outs = pipe.run(st0, images[1:], d_gyro, d_accel, d_dts)
@@ -1372,6 +1475,7 @@ def ingest_run(dev, und, crop, raw_u8, gwc, imu, cfg, levels, cell):
     ate = float(np.sqrt(np.mean(np.sum((p_est - gwc[1:, :, 3]) ** 2,
                                        axis=1))))
     return {"ate": ate, "und_host_ms": und_host_ms, "und_dev_ms": und_dev_ms,
+            "und_k6_ms": k6_ms, "und_cast_ms": cast_ms,
             "total_s": total_s, "n_frames": n_frames,
             "tracked": int(outs["obs_valid"].sum())}
 
@@ -1532,8 +1636,10 @@ def ingest_phase(dev, kernels, direct_ate):
         f"{res['tracked']}")
     log(f"ingest: undistort {n} frames in one launch: "
         f"{res['und_dev_ms']:.3f} ms by CUDA events ("
-        f"{res['und_dev_ms'] / n:.5f} ms/frame, the f32 conversion "
-        f"included), {res['und_host_ms']:.3f} ms on the host clock; whole "
+        f"{res['und_dev_ms'] / n:.5f} ms/frame) = K6 "
+        f"{res['und_k6_ms']:.3f} ms + the f32 conversion "
+        f"{res['und_cast_ms']:.3f} ms, {res['und_host_ms']:.3f} ms on the "
+        f"host clock; whole "
         f"path (undistort + init + {n - 1} frames) "
         f"{res['total_s'] / n * 1e3:.3f} ms/frame on the host clock")
     check(res["ate"] < ATE_GATE_M,

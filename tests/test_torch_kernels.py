@@ -625,3 +625,146 @@ def test_bilinear_remap_refuses_mixed_devices(dev):
     img = torch.zeros((8, 8), device=dev)
     with pytest.raises(ValueError, match="CUDA device"):
         trm.bilinear_remap(img, torch.zeros((4, 4, 2)))
+
+
+def _smooth_table(oh, ow, H, W, seed):
+    """A smooth warp: an affine map plus a radial term, as a calibration
+    gives one."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:oh, 0:ow].astype(np.float64)
+    a = rng.uniform(0.9, 1.1, 2)
+    u = (x - ow / 2) * a[0] + 0.05 * (y - oh / 2)
+    v = (y - oh / 2) * a[1] - 0.05 * (x - ow / 2)
+    k = rng.uniform(-2e-7, 2e-7)
+    r2 = u * u + v * v
+    sx = u * (1 + k * r2) + W / 2 + rng.uniform(-2, 2)
+    sy = v * (1 + k * r2) + H / 2 + rng.uniform(-2, 2)
+    return np.stack([sx, sy], -1).astype(np.float32)
+
+
+def _plain_branches(img, table):
+    lead, H, W, C, _ = trm._layout(img, table)
+    tile, budget = trm.remap_tiling(img.dtype, C)
+    return trm.remap_footprint_plain(
+        table.cpu(), H, W, tile, budget, C=C, itemsize=img.element_size(),
+        aligned=img.data_ptr() % 16 == 0, frames=int(np.prod(lead)))[1]
+
+
+def _check_remap(img, table):
+    """The kernel equals the plain version bit for bit, its branches equal
+    remap_footprint_plain's; returns the branches."""
+    n0 = trm.bilinear_remap.launches
+    got, br = trm.bilinear_remap(img, table, return_branches=True)
+    ref = trm.bilinear_remap_plain(img, table)
+    torch.cuda.synchronize()
+    assert trm.bilinear_remap.launches == n0 + 1
+    assert got.dtype == img.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    assert torch.equal(br.cpu(), _plain_branches(img, table))
+    return br
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.uint8, (1, 600, 960)), (torch.uint8, (240, 600, 960)),
+    (torch.uint8, (1, 600, 960, 3)), (torch.uint8, (240, 600, 960, 3)),
+    (torch.float32, (1, 600, 960)), (torch.float32, (240, 600, 960))])
+def test_bilinear_remap_corvis_slice_is_staged_and_exact(dev, dtype, shape):
+    """The path's table: 0 differing bits against plain for uint8 (one and
+    three channels) and float32, one frame and 240; every tile staged for
+    the batch, gathered directly for the single frame."""
+    rng = np.random.default_rng(4)
+    table = corvis_undistorter(device=dev).remap[50:550]
+    if dtype == torch.uint8:
+        img = torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                              device=dev)
+    else:
+        img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                              device=dev)
+    br = _check_remap(img, table)
+    want = trm.STAGED if shape[0] > 1 else trm.DIRECT
+    assert bool((br == want).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_bilinear_remap_mixed_table_takes_both_branches(dev, dtype):
+    """Half the rows a smooth warp, half random with invalid rows and a NaN
+    entry: the smooth tiles are staged, the random ones direct, and both
+    equal the plain version bit for bit, at batch sizes that the kernel
+    splits differently over its grid (a single frame into parts of each
+    tile, 3 and 9 frames into one group, 50 and 240 into several)."""
+    rng = np.random.default_rng(5)
+    H, W, oh, ow = 480, 640, 192, 512
+    table = _smooth_table(oh, ow, H, W, seed=6)
+    rnd = np.stack([rng.uniform(1, W - 2, (oh // 2, ow)),
+                    rng.uniform(1, H - 2, (oh // 2, ow))], -1)
+    table[oh // 2:] = rnd
+    table[oh // 2 + 3, :, 0] = -1.0
+    table[oh // 2 + 5, 7] = np.nan
+    table[7, :40, 0] = -1.0            # invalid entries in a staged tile
+    table = torch.as_tensor(table, device=dev)
+    frames = torch.as_tensor(rng.uniform(0, 255, (240, H, W)).astype(
+        np.float32), device=dev).to(dtype)
+    for B in (1, 3, 9, 50, 240):
+        br = _check_remap(frames[:B], table)
+        if B == 1:
+            assert bool((br == trm.DIRECT).all())
+            continue
+        assert {int(v) for v in br.unique()} == {trm.STAGED, trm.DIRECT}
+        assert int((br[:br.shape[0] // 2] == trm.STAGED).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype,shape,aligned", [
+    (torch.uint8, (3, 131, 77), False), (torch.float32, (3, 131, 77), False),
+    (torch.float32, (2, 50, 60, 3), True), (torch.uint8, (2, 50, 64, 3), True),
+    (torch.float32, (2, 3, 40, 44, 1), True)])
+def test_bilinear_remap_odd_shapes_smooth(dev, dtype, shape, aligned):
+    """A smooth warp on the odd frames: a row pitch that is not a multiple
+    of 16 bytes sends every tile to the direct branch; the others stage."""
+    rng = np.random.default_rng(7)
+    chan = len(shape) >= 4
+    H, W = shape[-3:-1] if chan else shape[-2:]
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                          device=dev).to(dtype)
+    table = torch.as_tensor(_smooth_table(37, 53, H, W, seed=8), device=dev)
+    br = _check_remap(img, table)
+    assert bool((br == (trm.STAGED if aligned else trm.DIRECT)).all())
+
+
+def test_bilinear_remap_repeatable_and_sliceable(dev):
+    """Two launches are bit-identical; the remap of a row slice of the table
+    is the slice of the remap; a batch misaligned by one byte goes direct
+    and still equals plain."""
+    rng = np.random.default_rng(9)
+    table = corvis_undistorter(device=dev).remap
+    img = torch.as_tensor(rng.integers(0, 256, (6, 600, 960),
+                                       dtype=np.uint8), device=dev)
+    a, b = trm.bilinear_remap(img, table), trm.bilinear_remap(img, table)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(trm.bilinear_remap(img, table[50:550]), a[:, 50:550])
+    assert torch.equal(trm.bilinear_remap(img, table[123:301]), a[:, 123:301])
+    flat = torch.empty(6 * 600 * 960 + 1, dtype=torch.uint8, device=dev)
+    odd = flat[1:].view(6, 600, 960)
+    odd.copy_(img)
+    got, br = trm.bilinear_remap(odd, table[50:550], return_branches=True)
+    torch.cuda.synchronize()
+    assert bool((br == trm.DIRECT).all())
+    assert torch.equal(got, a[:, 50:550])
+
+
+@pytest.mark.parametrize("shape,branch", [
+    ((2, 600, 960), trm.DIRECT), ((5, 131, 77), trm.DIRECT),
+    ((2, 50, 60, 3), trm.STAGED)])
+def test_bilinear_remap_random_tables_branch(dev, shape, branch):
+    """The tests' random tables: direct on 600x960 frames (the box is the
+    frame) and on a 77-byte row pitch; staged where the whole frame fits a
+    stage. Equal to plain and to the plain footprint either way."""
+    rng = np.random.default_rng(10)
+    chan = len(shape) == 4
+    H, W = shape[-3:-1] if chan else shape[-2:]
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                          device=dev)
+    if shape == (5, 131, 77):
+        img = img.to(torch.uint8)
+    br = _check_remap(img, _random_table(rng, 37, 53, H, W, dev))
+    assert bool((br == branch).all())

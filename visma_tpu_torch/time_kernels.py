@@ -22,6 +22,17 @@ same 20 calls captured in a CUDA graph and replayed, without the host):
                         256x384, 16-px subtiles (`_prep_chunks_all`)
   chunk_raster_batched  K4 on that batch
   chunk_raster_frame    K3 on one 500x960 pose
+  bilinear_remap        K6 on the ingest path's call: 240 uint8 600x960
+                        frames through rows 50-549 of the Corvis table
+                        (and _graph); _f32_frame: one float32 frame through
+                        the whole table; _cli_frame: one (600, 960, 3) uint8
+                        frame through rows 50-549, the per-file call of
+                        cli/undistort_images
+
+    python -m visma_tpu_torch.time_kernels --only bilinear_remap
+
+times K6 alone (the frames are random uint8 from a seed: K6's work does
+not depend on them).
 
 It goes through names that do not depend on the layout of the plane table,
 on how many launches a tracked frame, a detection or a score makes, so the
@@ -31,6 +42,7 @@ card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -42,6 +54,8 @@ from visma_tpu_torch.frontend.klt_fused import track_features_fused
 from visma_tpu_torch.frontend.pyramid import build_pyramid
 from visma_tpu_torch.geom.lie import SE3
 from visma_tpu_torch.image.edges import depth_edge
+from visma_tpu_torch.image.remap import bilinear_remap
+from visma_tpu_torch.image.undistort import corvis_undistorter
 from visma_tpu_torch.io.procedural import bench_mesh_db
 from visma_tpu_torch.io.synthetic import SyntheticConfig
 from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
@@ -100,7 +114,37 @@ def hypothesis_windows(mean, mesh_idx, intr, roi, n_hyp, seed=0):
             torch.repeat_interleave(origins, n_hyp, dim=0))
 
 
+def remap_times(dev):
+    """K6 at the ingest path's call, one float32 frame and the CLI's
+    per-file colour frame, in ms."""
+    table = corvis_undistorter(device=dev).remap
+    sliced = table[50:550]
+    rng = np.random.default_rng(11)
+    raw = torch.as_tensor(rng.integers(0, 256, (240, 600, 960),
+                                       dtype=np.uint8), device=dev)
+    one = raw[1].to(torch.float32)
+    col = torch.as_tensor(rng.integers(0, 256, (600, 960, 3),
+                                       dtype=np.uint8), device=dev)
+    return {
+        "bilinear_remap_ms": cuda_ms(lambda: bilinear_remap(raw, sliced)),
+        "bilinear_remap_graph_ms": graph_ms(
+            lambda: bilinear_remap(raw, sliced)),
+        "bilinear_remap_f32_frame_ms": cuda_ms(
+            lambda: bilinear_remap(one, table)),
+        "bilinear_remap_f32_frame_graph_ms": graph_ms(
+            lambda: bilinear_remap(one, table)),
+        "bilinear_remap_cli_frame_ms": cuda_ms(
+            lambda: bilinear_remap(col, sliced)),
+        "bilinear_remap_cli_frame_graph_ms": graph_ms(
+            lambda: bilinear_remap(col, sliced)),
+    }
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["bilinear_remap"],
+                    help="time this kernel alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -109,6 +153,9 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
+    if args.only == "bilinear_remap":
+        print(json.dumps({"card": card, **remap_times(dev)}), flush=True)
+        return
 
     # 30 frames: the scene's photometric drift is spread over its length,
     # and a 2-frame scene would put all of it between the two frames
@@ -176,6 +223,7 @@ def main():
     out["covered_pixels_frame"] = int(torch.isfinite(full).sum())
     out["chunk_raster_frame_ms"] = cuda_ms(
         lambda: rs.chunk_raster_frame(fp, fi, fc, intr))
+    out.update(remap_times(dev))
     print(json.dumps(out), flush=True)
 
 
