@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from visma_tpu_torch/csrc with nvcc, then
-drives the port's three paths at the full width of the configuration the
-repo benches, holding each kernel against its plain PyTorch version on the
+drives the port's paths at the full width of the configuration the repo
+benches, holding each kernel against its plain PyTorch version on the
 card at the shapes the path gives it:
 
   VIO       240 frames of 500x960 adversarial imagery plus IMU
@@ -31,11 +31,28 @@ card at the shapes the path gives it:
             centroids within 0.25 px of their projections after
             undistortion, health, ATE < 0.10 m; kernels bilinear_remap,
             corner_score, lk_track.
+  slam      the VIO scene again with 16 in-state SLAM landmark slots
+            (filter/slam.py); gates: health, ATE < 0.10 m, a live landmark
+            with a finite position at the end, INSTATE exported, the VIO
+            phase's launch counts; then 60 frames in Schmidt mode (each
+            landmark keeps its estimate from its promotion on) and
+            `run_vio --synthetic 60 --no-imu` (similarity-aligned ATE
+            < 0.1 m, tests/test_cli.py:120).
+  eval      bench.py:341-478's evaluation operating points, built with the
+            port's own copies: surface error of 500k samples against the
+            10,164-face chair + desk scene (mean held to the JAX package's
+            on the same samples; the SoA path against the pairwise oracle
+            on 20k of them), ICP at voxel 0.05 / 0.075 m / 30 iterations
+            (fitness >= 0.99, two runs the same bytes), RegisterScenes 5/5;
+            then the evaluate tool on a written tool.json scene (2 chairs +
+            2 desks, a ~500k-point cloud; gates of tests/test_eval.py:165)
+            and the annotate tool on each object's part of that cloud. No
+            hand kernel: the reference computes this path in XLA.
 
-For each path the launch counts are set to 0 just before it runs and read
-just after, and must equal what the schedule implies. No kernel may read
-faster than its bound. Prints the card, the kernel table as one JSON line
-and, last, {"ok": true, "device": {...}}.
+For each path that runs kernels the launch counts are set to 0 just before
+it runs and read just after, and must equal what the schedule implies. No
+kernel may read faster than its bound. Prints the card, the kernel table as
+one JSON line and, last, {"ok": true, "device": {...}}.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import json
@@ -74,6 +91,32 @@ GEOMETRY_TOL_PX = 0.25     # blob centroid vs projection after undistortion
 CLI_FRAMES = 40            # frames of the sequence written to disk
 EPOCH_US = 1520535100000000  # VISMA frames are stamped in microseconds
 REMAP_FLOP_PER_VALUE = 12  # 4 multiplies + 3 adds, the weights amortised
+
+# SLAM landmarks on the VIO scene (tests/test_slam.py's slot count)
+SLAM_SLOTS = 16
+SCHMIDT_FRAMES = 60
+NO_IMU_ATE_GATE_M = 0.1    # tests/test_cli.py:120
+
+# evaluation scene (bench.py:341-478) and the evaluate tool's scene
+EVAL_SURFACE_SAMPLES = 500_000
+EVAL_AOS_SAMPLES = 20_000
+EVAL_ICP_SAMPLES = 50_000  # cfg/tool.json's samples_per_model
+EVAL_VOXEL_CAP = 8192
+EVAL_CLOUD_POINTS = 500_000
+# BENCH_r05's parity targets, measured with a 4,999-face chair; the
+# procedural chair has 5,016 faces now, so the surface mean is held to the
+# JAX package on this scene instead: its mean over the 20,000 samples of
+# seed 0 (tests/test_torch_eval.py pins it), within 1e-6 m, and the 500k
+# mean within 4 standard errors (4 x 9.2e-5 m) of it
+BENCH_SURFACE_MEAN_M = 0.0125
+SURFACE_REF_MEAN_20K_M = 0.013020372158137195
+SURFACE_SAMPLE_TOL_M = 4e-4
+# ... and ICP (BENCH_r05: fitness 0.993, rmse 0.71 cm) to the JAX package's
+# result on this scene (tests/test_torch_align.py pins it): the same
+# correspondences, rmse within 1e-5 m
+BENCH_ICP_FITNESS = 0.993
+ICP_REF_CORRESPONDENCES = 728
+ICP_REF_RMSE_M = 0.018558146432042122
 
 
 def check(cond, msg):
@@ -503,7 +546,10 @@ def vio_phase(dev, kernels):
           "repeat run differs")
     log(f"pipeline repeat run: {rep_s / N * 1e3:.3f} ms/frame "
         f"({N / rep_s:.1f} frames/s)")
-    return launches, ate
+    scene = {"cfg": cfg, "frames": frames, "gwc": gwc, "imu": imu,
+             "images": d_images, "gyro": d_gyro, "accel": d_accel,
+             "dts": d_dts}
+    return launches, ate, scene
 
 
 def raster_work(C, poses, intr, origins, planes, ids, counts, out, sub_px):
@@ -1664,6 +1710,432 @@ def ingest_phase(dev, kernels, direct_ate):
     return launches
 
 
+def slam_phase(dev, scene, direct_ate, card):
+    """The VIO bench scene with 16 in-state SLAM landmark slots through
+    VioPipeline.run (the VIO phase's settings otherwise), 60 frames of it
+    in Schmidt mode, and `run_vio --synthetic 60 --no-imu` on the card.
+    direct_ate: the VIO phase's ATE in metres (num_slam = 0), printed
+    beside this one."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.cli import run_vio
+    from visma_tpu_torch.filter.msckf import check_health
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+    from visma_tpu_torch.pipeline import VioPipeline
+    from visma_tpu_torch.proto import FeatureStatus
+
+    cfg = replace(scene["cfg"], num_slam=SLAM_SLOTS)
+    frames, gwc, imu = scene["frames"], scene["gwc"], scene["imu"]
+    seq = (scene["images"], scene["gyro"], scene["accel"], scene["dts"])
+    N = seq[0].shape[0]
+    init = dict(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+    pipe = VioPipeline(cfg, levels=4, cell=32)
+    check(pipe.device.type == "cuda", "VioPipeline did not default to CUDA")
+    frame0 = torch.as_tensor(frames[0], device=dev)
+    torch.cuda.synchronize()
+
+    corner_score.launches = 0
+    lk_track.launches = 0
+    t0 = time.time()
+    final, outs = pipe.run(pipe.init(frame0, **init), *seq)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {"corner_score": corner_score.launches,
+                "lk_track": lk_track.launches}
+
+    check_health(outs)
+    p_est = outs["p"].cpu().numpy()
+    check(p_est.shape == (N, 3) and np.isfinite(p_est).all(),
+          f"slam: bad trajectory shape {p_est.shape}")
+    ate = float(np.sqrt(np.mean(np.sum((p_est - gwc[1:, :, 3]) ** 2,
+                                       axis=1))))
+    lm_ids = final.filter.lm_ids.cpu().numpy()
+    lm_xw = final.filter.lm_xw.cpu().numpy()
+    live = lm_ids >= 0
+    instate = int((outs["feat_status"] == int(FeatureStatus.INSTATE)).sum())
+    ids_run = outs["lm_ids"].cpu().numpy()
+    promoted = len(np.unique(ids_run[ids_run >= 0]))
+    log(f"slam: ATE RMSE {ate * 100:.3f} cm over {N} frames with "
+        f"num_slam={SLAM_SLOTS} (num_slam=0 in this run: "
+        f"{direct_ate * 100:.3f} cm, in earlier runs "
+        f"{EARLIER_ATE_CM['vio']} cm); {int(live.sum())} live landmarks at "
+        f"the end, {promoted} promoted over the run, {instate} INSTATE "
+        f"exports; first run (init + {N} frames) {first_s:.2f} s; launches "
+        f"{launches} [{card}]")
+    check(ate < ATE_GATE_M, f"slam accuracy gate failed: ATE {ate:.4f} m")
+    check(live.any(), "slam: no live landmark at the end")
+    check(np.isfinite(lm_xw[live]).all(), "slam: non-finite landmark")
+    check(instate > 0, "slam: INSTATE never exported")
+    want = {"corner_score": N + 1, "lk_track": N}
+    check(launches == want, f"slam launches {launches} != {want}")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, o = pipe.run(pipe.init(frame0, **init), *seq)
+    torch.cuda.synchronize()
+    rep_s = time.time() - t0
+    check(np.allclose(o["p"].cpu().numpy(), p_est, atol=1e-5),
+          "slam: repeat run differs")
+    log(f"slam: repeat run {rep_s / N * 1e3:.3f} ms/frame "
+        f"({N / rep_s:.1f} frames/s) on the host clock [{card}]")
+
+    # Schmidt mode: a landmark keeps its estimate from its promotion on
+    # (tests/test_slam.py:85)
+    pipe_s = VioPipeline(replace(cfg, schmidt=True), levels=4, cell=32)
+    n_s = SCHMIDT_FRAMES - 1
+    _, o_s = pipe_s.run(pipe_s.init(frame0, **init),
+                        *(x[:n_s] for x in seq))
+    check_health(o_s)
+    ids = o_s["lm_ids"].cpu().numpy()
+    xw = o_s["lm_xw"].cpu().numpy()
+    checked = 0
+    for j in range(ids.shape[1]):
+        live_j = np.flatnonzero(ids[:, j] >= 0)
+        if live_j.size < 2:
+            continue
+        seg = [live_j[0]]
+        for t in live_j[1:]:
+            if t != seg[-1] + 1 or ids[t, j] != ids[live_j[0], j]:
+                break
+            seg.append(t)
+        check((xw[seg, j] == xw[seg[0], j]).all(),
+              f"slam: Schmidt landmark {ids[seg[0], j]} moved")
+        checked += len(seg) > 1
+    check(checked > 0, "slam: no Schmidt landmark lived two frames")
+    ate_s = float(np.sqrt(np.mean(np.sum(
+        (o_s["p"].cpu().numpy() - gwc[1:SCHMIDT_FRAMES, :, 3]) ** 2, 1))))
+    log(f"slam: Schmidt mode, {n_s} frames: {checked} landmarks held their "
+        f"estimate from promotion on; ATE {ate_s * 100:.3f} cm")
+
+    t0 = time.time()
+    report = run_vio.main(["--synthetic", str(SCHMIDT_FRAMES), "--no-imu"])
+    log(f"slam: run_vio --synthetic {SCHMIDT_FRAMES} --no-imu on the card in "
+        f"{time.time() - t0:.1f} s: {report}")
+    check(report["ate_sim_aligned_m"] < NO_IMU_ATE_GATE_M,
+          f"run_vio --no-imu: sim-aligned ATE {report['ate_sim_aligned_m']}")
+    return launches
+
+
+def place(V, T):
+    import numpy as np
+
+    return np.asarray(V) @ T[:3, :3].T + T[:3, 3]
+
+
+def bench_eval_scene():
+    """bench.py:341-478's scene, built with the port's copies: the chair +
+    desk ground truth, the perturbed estimate, the ICP pair and the five
+    RegisterScenes objects, from the bench's seeds."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from visma_tpu_torch.eval.sampling import sample_mesh
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+
+    rng = np.random.default_rng(11)
+    db = bench_mesh_db()
+    Vc, Fc = db["chair"]
+    Vd, Fd = db["desk"]
+    T1 = np.eye(4)
+    T1[:3, :3] = Rotation.from_euler("y", 0.4).as_matrix()
+    T1[:3, 3] = [-0.8, 0.0, 2.5]
+    T2 = np.eye(4)
+    T2[:3, 3] = [0.8, 0.0, 3.0]
+    Vt = np.concatenate([place(Vc, T1), place(Vd, T2)])
+    Ft = np.concatenate([np.asarray(Fc), np.asarray(Fd) + len(Vc)])
+    dT = np.eye(4)
+    dT[:3, :3] = Rotation.from_euler("y", 0.01).as_matrix()
+    dT[:3, 3] = [0.01, -0.005, 0.008]
+    Vs = place(Vt, dT)
+
+    model_pts = sample_mesh(Vc, Fc, EVAL_ICP_SAMPLES, seed=1)
+    scan = place(model_pts, T1) + rng.normal(0, 0.004, model_pts.shape)
+    dTi = np.eye(4)
+    dTi[:3, :3] = Rotation.from_euler("y", 0.03).as_matrix()
+    dTi[:3, 3] = [0.02, -0.01, 0.015]
+    src = place(model_pts, dTi @ T1)
+
+    objs_t, objs_s = {}, {}
+    T_off = np.eye(4)
+    T_off[:3, :3] = Rotation.from_euler("z", 0.3).as_matrix()
+    T_off[:3, 3] = [0.5, -0.2, 0.1]
+    for i in range(5):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_euler("y", rng.uniform(0, 6)).as_matrix()
+        T[:3, 3] = rng.uniform(-2, 2, 3)
+        objs_t[i] = {"name": "chair" if i % 2 else "desk", "pose": T}
+        objs_s[i] = {"name": objs_t[i]["name"], "pose": T_off @ T}
+    return dict(Vt=Vt, Ft=Ft, Vs=Vs, src=src, scan=scan, objs_t=objs_t,
+                objs_s=objs_s)
+
+
+def z_up_mesh_db():
+    """The bench chair and desk turned z-up (the annotation tool's yaw
+    sweep turns about z), standing on z = 0."""
+    import numpy as np
+
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+
+    Rx = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+    out = {}
+    for name, (V, F) in bench_mesh_db().items():
+        Vz = np.asarray(V, np.float64) @ Rx.T
+        Vz[:, 2] -= Vz[:, 2].min()
+        out[name] = (Vz, np.asarray(F))
+    return out
+
+
+def write_tool_scene(root, cloud_points):
+    """A VISMA evaluation directory (eval/evaluate.py's layout): 2 chairs +
+    2 desks of the z-up bench meshes at ground-truth poses, alignment.json,
+    result.json in a frame offset by a known T_ef_corvis, and test.klg.ply,
+    a pseudo-ground-truth cloud of about `cloud_points` points (the objects
+    sampled by area and a floor, 2 mm noise). Returns (config path,
+    T_ef_corvis, {key: (name, pose)}, the cloud)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from visma_tpu_torch.eval.sampling import sample_mesh
+    from visma_tpu_torch.io import save_obj, save_ply
+    from visma_tpu_torch.io.json_io import matrix_to_json
+
+    rng = np.random.default_rng(5)
+    db = z_up_mesh_db()
+    cad = os.path.join(root, "cad")
+    scene_dir = os.path.join(root, "data", "scene")
+    os.makedirs(cad)
+    os.makedirs(os.path.join(scene_dir, "fragments"))
+    for name, (V, F) in db.items():
+        save_obj(os.path.join(cad, name + ".obj"), V, F)
+
+    objects, gt_json, pts = {}, {}, []
+    slots = [(-1.25, -1.25), (1.25, -1.25), (-1.25, 1.25), (1.25, 1.25)]
+    area = {n: 0.5 * np.linalg.norm(np.cross(V[F[:, 1]] - V[F[:, 0]],
+                                             V[F[:, 2]] - V[F[:, 0]]),
+                                    axis=1).sum() for n, (V, F) in db.items()}
+    n_obj = int(cloud_points * 0.8)
+    total = 2 * (area["chair"] + area["desk"])
+    for i, (name, xy) in enumerate(zip(["chair", "desk", "chair", "desk"],
+                                       slots)):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_euler("z", rng.uniform(0, 2 * np.pi)
+                                        ).as_matrix()
+        T[:3, 3] = [xy[0] + rng.uniform(-0.2, 0.2),
+                    xy[1] + rng.uniform(-0.2, 0.2), 0.0]
+        key = f"{name}_{i}"
+        objects[key] = (name, T)
+        matrix_to_json(gt_json, key, T[:3, :4])
+        V, F = db[name]
+        pts.append(place(sample_mesh(V, F, int(n_obj * area[name] / total),
+                                     seed=10 + i), T))
+    n_floor = cloud_points - sum(len(p) for p in pts)
+    pts.append(np.column_stack([rng.uniform(-2.5, 2.5, (n_floor, 2)),
+                                np.zeros(n_floor)]))
+    cloud = (np.concatenate(pts) + rng.normal(0, 0.002, (cloud_points, 3))
+             ).astype(np.float32)
+    with open(os.path.join(scene_dir, "fragments", "alignment.json"),
+              "w") as fp:
+        json.dump(gt_json, fp)
+
+    T_ef_corvis = np.eye(4)
+    T_ef_corvis[:3, :3] = Rotation.from_rotvec([0.1, -0.2, 0.3]).as_matrix()
+    T_ef_corvis[:3, 3] = [0.4, -0.3, 0.2]
+    result = []
+    for i, (key, (name, T)) in enumerate(objects.items()):
+        obj = {"id": i, "model_name": name, "status": 2}
+        matrix_to_json(obj, "model_pose",
+                       (np.linalg.inv(T_ef_corvis) @ T)[:3, :4])
+        result.append(obj)
+    with open(os.path.join(scene_dir, "result.json"), "w") as fp:
+        json.dump([result], fp)
+    save_ply(os.path.join(scene_dir, "test.klg.ply"), cloud)
+
+    config = {"dataroot": os.path.join(root, "data"), "dataset": "scene",
+              "CAD_database_root": cad,
+              "evaluation": {"ICP_refinement": True, "voxel_size": 0.05,
+                             "max_distance": 0.075,
+                             "samples_per_model": EVAL_ICP_SAMPLES},
+              "visualization": {"model_samples": 5000}}
+    cfg_path = os.path.join(root, "tool.json")
+    with open(cfg_path, "w") as fp:
+        json.dump(config, fp)
+    return cfg_path, T_ef_corvis, objects, cloud
+
+
+def eval_cli(root, card):
+    """cli.evaluate on a tool.json scene, then cli.annotate on each
+    object's part of the same cloud, both on the card by default. Returns
+    the evaluate tool's seconds and metrics."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from visma_tpu_torch.cli import annotate, evaluate
+    from visma_tpu_torch.io import save_ply
+
+    cfg_path, T_true, objects, cloud = write_tool_scene(root,
+                                                        EVAL_CLOUD_POINTS)
+    scene_dir = os.path.join(root, "data", "scene")
+    t0 = time.time()
+    metrics = evaluate.main([cfg_path])
+    eval_s = time.time() - t0
+    with open(os.path.join(scene_dir, "result_alignment.json")) as fp:
+        T = np.asarray(json.load(fp)["T_ef_corvis"]).reshape(3, 4)
+    t_err = float(np.abs(T - T_true[:3]).max())
+    log(f"eval: cli.evaluate on {len(cloud)} cloud points, "
+        f"{len(objects)} objects: {eval_s:.2f} s; T_ef_corvis recovered to "
+        f"{t_err:.2e} (gate 0.02); surface mean "
+        f"{metrics['surface']['mean']:.5f} m, translation max "
+        f"{metrics['translation']['max']:.5f} m, rotation max "
+        f"{metrics['rotation']['max']:.4f} deg [{card}]")
+    check(t_err < 0.02, f"evaluate: T_ef_corvis off by {t_err}")
+    check(metrics["surface"]["mean"] < 0.02, "evaluate: surface mean")
+    check(metrics["translation"]["max"] < 0.05, "evaluate: translation max")
+    check(metrics["rotation"]["max"] < 3.0, "evaluate: rotation max")
+    for name in ("result_alignment.json", "augmented_view.ply",
+                 "surface_error.json", "translation_error.json",
+                 "rotation_error.json"):
+        check(os.path.isfile(os.path.join(scene_dir, name)),
+              f"evaluate did not write {name}")
+
+    # the annotation tool, one object's part of the cloud at a time (its
+    # yaw sweep starts from the part's centroid)
+    t0 = time.time()
+    cad = os.path.join(root, "cad")
+    for key, (name, T) in objects.items():
+        near = (np.linalg.norm(cloud[:, :2] - T[:2, 3], axis=1) < 0.9) \
+            & (cloud[:, 2] > 0.01)
+        scan = os.path.join(root, f"{key}.ply")
+        save_ply(scan, cloud[near])
+        out = os.path.join(root, f"{key}.json")
+        fits = annotate.main([scan, cad, name, "--output", out])
+        res = fits[f"{name}_0"]
+        with open(out) as fp:
+            Ta = np.asarray(json.load(fp)[f"{name}_0"]).reshape(3, 4)
+        dR = Ta[:, :3].T @ T[:3, :3]
+        rot = Rotation.from_matrix(dR).magnitude()
+        if name == "desk":       # symmetric under a half turn about z
+            rot = min(rot, Rotation.from_matrix(
+                dR @ np.diag([-1.0, -1.0, 1.0])).magnitude())
+        trans = float(np.linalg.norm(Ta[:, 3] - T[:3, 3]))
+        log(f"eval: cli.annotate {key} on {int(near.sum())} points: fitness "
+            f"{res.fitness:.3f}, translation {trans:.4f} m, rotation "
+            f"{rot:.4f} rad")
+        check(res.fitness > 0.6, f"annotate {key}: fitness {res.fitness}")
+        check(trans < 0.05, f"annotate {key}: translation {trans}")
+        check(rot < 0.1, f"annotate {key}: rotation {rot}")
+    log(f"eval: cli.annotate, {len(objects)} objects: "
+        f"{time.time() - t0:.2f} s [{card}]")
+    return eval_s, metrics
+
+
+def eval_phase(dev, card):
+    """bench.py:341-478's operating points with the port's copies (surface
+    error, ICP, RegisterScenes), then the evaluate and annotate tools."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.align import (icp, nearest_neighbors,
+                                       register_scenes, voxel_downsample)
+    from visma_tpu_torch.eval.metrics import (_pm_dist, _pm_dist_aos,
+                                              compute_error_metric,
+                                              point_mesh_distances)
+    from visma_tpu_torch.eval.sampling import sample_mesh
+
+    sc = bench_eval_scene()
+    # surface error: EVAL_SURFACE_SAMPLES samples against the scene mesh
+    pts = sample_mesh(sc["Vs"], sc["Ft"], EVAL_SURFACE_SAMPLES, seed=0)
+    V = torch.as_tensor(sc["Vt"], dtype=torch.float32, device=dev)
+    F = torch.as_tensor(sc["Ft"], dtype=torch.int64, device=dev)
+    A, B, C = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+    P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    surf_ms = cuda_ms(lambda: _pm_dist(P, A, B, C), reps=3, warmup=1)
+    m = compute_error_metric(point_mesh_distances(pts, sc["Vt"], sc["Ft"]))
+    sub_pts = sample_mesh(sc["Vs"], sc["Ft"], EVAL_AOS_SAMPLES, seed=0)
+    sub = torch.as_tensor(sub_pts, dtype=torch.float32, device=dev)
+    d2_sub = _pm_dist(sub, A, B, C)
+    sub_mean = float(torch.sqrt(d2_sub.double()).mean())
+    log(f"eval: surface error, {len(pts)} samples x {len(sc['Ft'])} faces: "
+        f"{surf_ms:.3f} ms by CUDA events; mean {m.mean:.6f} m (BENCH_r05: "
+        f"{BENCH_SURFACE_MEAN_M} with a 4,999-face chair); over the "
+        f"{len(sub)} samples of seed 0 {sub_mean:.9f} m, the JAX package "
+        f"{SURFACE_REF_MEAN_20K_M:.9f} [{card}]")
+    check(abs(sub_mean - SURFACE_REF_MEAN_20K_M) < 1e-6,
+          f"surface mean {sub_mean} is not the JAX package's")
+    check(abs(m.mean - SURFACE_REF_MEAN_20K_M) < SURFACE_SAMPLE_TOL_M,
+          f"surface mean {m.mean} over {len(pts)} samples")
+    err = (torch.sqrt(d2_sub) - torch.sqrt(_pm_dist_aos(sub, A, B, C))).abs()
+    log(f"eval: SoA against the pairwise oracle on {len(sub)} samples: max "
+        f"{float(err.max()):.3e} m, mean {float(err.mean()):.3e} m")
+    check(float(err.max()) < 1.5e-3 and float(err.mean()) < 1e-5,
+          "surface error: SoA path outside its documented bound")
+    # a row's answer does not depend on the chunk the card takes
+    pieces = torch.cat([_pm_dist(c, A, B, C) for c in torch.split(sub, 1024)])
+    check(torch.equal(pieces, d2_sub), "surface error depends on the chunk")
+
+    # ICP at the reference operating point
+    s_dn, s_ok = voxel_downsample(torch.as_tensor(sc["src"], dtype=torch
+                                                  .float32, device=dev),
+                                  0.05, max_out=EVAL_VOXEL_CAP)
+    t_dn, t_ok = voxel_downsample(torch.as_tensor(sc["scan"], dtype=torch
+                                                  .float32, device=dev),
+                                  0.05, max_out=EVAL_VOXEL_CAP)
+    again = voxel_downsample(torch.as_tensor(sc["scan"], dtype=torch.float32,
+                                             device=dev), 0.05,
+                             max_out=EVAL_VOXEL_CAP)
+    check(torch.equal(again[0], t_dn) and torch.equal(again[1], t_ok),
+          "voxel_downsample: two runs differ")
+    kw = dict(max_distance=0.075, max_iters=30, source_valid=s_ok,
+              target_valid=t_ok)
+    res = icp(s_dn, t_dn, **kw)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        again = icp(s_dn, t_dn, **kw)
+        times.append((time.time() - t0) * 1e3)
+    log(f"eval: ICP, {len(sc['src'])} samples at voxel 0.05 (cap "
+        f"{EVAL_VOXEL_CAP}: {int(s_ok.sum())} / {int(t_ok.sum())} voxels), "
+        f"30 iterations: {np.mean(times):.3f} ms mean, {min(times):.3f} "
+        f"min of 5 on the host clock; fitness {res.fitness:.4f}, rmse "
+        f"{res.inlier_rmse * 100:.4f} cm, {res.correspondences} "
+        f"correspondences (the JAX package: {ICP_REF_CORRESPONDENCES}, "
+        f"{ICP_REF_RMSE_M * 100:.4f} cm; BENCH_r05 with a 4,999-face chair: "
+        f"fitness {BENCH_ICP_FITNESS}) [{card}]")
+    check(res.fitness >= 0.99, f"ICP fitness {res.fitness}")
+    check(res.correspondences == ICP_REF_CORRESPONDENCES
+          and abs(res.inlier_rmse - ICP_REF_RMSE_M) < 1e-5,
+          "ICP is not the JAX package's")
+    check(np.array_equal(res.transformation, again.transformation)
+          and res.fitness == again.fitness
+          and res.inlier_rmse == again.inlier_rmse,
+          "ICP: two runs differ")
+    q = torch.as_tensor(place(sc["src"], res.transformation),
+                        dtype=torch.float32, device=dev)
+    ref = t_dn[t_ok]
+    i_all, d_all = nearest_neighbors(q, ref)
+    i_pc, d_pc = zip(*(nearest_neighbors(c, ref) for c in torch.split(q,
+                                                                      2048)))
+    check(torch.equal(i_all, torch.cat(i_pc))
+          and torch.equal(d_all, torch.cat(d_pc)),
+          "nearest neighbours depend on the chunk")
+
+    t0 = time.time()
+    _, matches = register_scenes(sc["objs_t"], sc["objs_s"], threshold=0.5)
+    reg_ms = (time.time() - t0) * 1e3
+    log(f"eval: RegisterScenes, 5 objects: {reg_ms:.3f} ms on the host, "
+        f"{len(matches)}/5 matched")
+    check(len(matches) == 5, f"register_scenes found {len(matches)}/5")
+
+    with tempfile.TemporaryDirectory() as root:
+        eval_cli(root, card)
+
+
 def main():
     import torch
 
@@ -1691,10 +2163,13 @@ def main():
                 log("  " + line.strip())
 
     kernels = []
-    vio_launches, vio_ate = vio_phase(dev, kernels)
+    vio_launches, vio_ate, vio_scene = vio_phase(dev, kernels)
     by_path = {"vio": vio_launches,
                "semantic": semantic_phase(dev, kernels),
-               "ingest": ingest_phase(dev, kernels, vio_ate)}
+               "ingest": ingest_phase(dev, kernels, vio_ate),
+               "slam": slam_phase(dev, vio_scene, vio_ate, card)}
+    del vio_scene
+    eval_phase(dev, card)
 
     check(sys.modules.get("jax") is None, "jax was imported")
     check(not any(k == "visma_tpu" or k.startswith("visma_tpu.")

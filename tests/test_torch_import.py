@@ -1,6 +1,7 @@
 """The PyTorch port stands on its own: it imports with `jax` and the JAX
 package `visma_tpu` blocked, its sources name neither, its own copies of
-the numpy-only `proto` and `io` modules give what the reference's give,
+the numpy-only `proto`, `io`, `align.registration`, `eval.sampling`,
+`eval.assembly` and `utils.term` modules give what the reference's give,
 and its entry points want the card unless told otherwise."""
 import os
 import re
@@ -44,7 +45,11 @@ def test_imports_with_jax_blocked():
         "          'cli.example_dump', 'io.loader', 'io.glob', 'io.binary',\n"
         "          'io.json_io', 'filter.feed', 'frontend.klt',\n"
         "          'image.remap', 'image.undistort', 'utils.timer',\n"
-        "          'utils.platform'):\n"
+        "          'utils.platform', 'filter.slam', 'align.umeyama',\n"
+        "          'align.nn', 'align.voxel', 'align.icp', 'align.annotation',\n"
+        "          'align.registration', 'eval.metrics', 'eval.evaluate',\n"
+        "          'eval.sampling', 'eval.assembly', 'utils.term',\n"
+        "          'cli.evaluate', 'cli.annotate'):\n"
         "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"
@@ -118,6 +123,26 @@ def test_entry_points_want_the_card():
         refine_pose_cem_batched(mr, np.zeros((32, 32), np.float32), pose,
                                 np.zeros(1, np.int64))
     assert SemanticMapper(intr, db, device="cpu").device.type == "cpu"
+
+    from visma_tpu_torch.align import icp, register_model_to_scene
+    from visma_tpu_torch.cli import annotate, evaluate
+    from visma_tpu_torch.eval import (measure_surface_error, mesh_alignment,
+                                      point_mesh_distances,
+                                      quantitative_evaluation)
+
+    pts = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
+    V, F = db["box"]
+    for call in (lambda: icp(pts, pts, 0.1),
+                 lambda: register_model_to_scene(pts, pts, num_yaw=2),
+                 lambda: point_mesh_distances(pts, V, F),
+                 lambda: measure_surface_error(V, F, V, F, 16),
+                 lambda: mesh_alignment({}),
+                 lambda: quantitative_evaluation({}),
+                 lambda: evaluate.main(["tool.json"]),
+                 lambda: annotate.main(["scan.ply", "cad", "chair"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert icp(pts, pts, 0.1, max_iters=1, device="cpu").fitness == 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +300,56 @@ def test_loader_copies_equal_reference(tmp_path):
     TIO.matrix_to_json(td, "m", mat)
     JIO.matrix_to_json(jd, "m", mat)
     assert td == jd
+
+
+def test_align_eval_copies_equal_reference():
+    """align.registration, eval.sampling, eval.assembly and utils.term: the
+    same outputs bit for bit on seeded inputs."""
+    from scipy.spatial.transform import Rotation
+
+    from visma_tpu.align import registration as JR
+    from visma_tpu.eval import assembly as JAs, sampling as JSa
+    from visma_tpu.utils import term as JT
+    from visma_tpu_torch.align import registration as TR
+    from visma_tpu_torch.eval import assembly as TAs, sampling as TSa
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+    from visma_tpu_torch.utils import term as TT
+
+    V, F = bench_mesh_db()["desk"]
+    np.testing.assert_array_equal(TSa.sample_mesh(V, F, 3000, seed=4),
+                                  JSa.sample_mesh(V, F, 3000, seed=4))
+    rng = np.random.default_rng(7)
+    T_off = np.eye(4)
+    T_off[:3, :3] = Rotation.from_euler("z", 0.3).as_matrix()
+    T_off[:3, 3] = [0.5, -0.2, 0.1]
+    tgt, src = {}, {}
+    for i in range(5):
+        T = np.eye(4)
+        T[:3, :3] = Rotation.from_euler("y", rng.uniform(0, 6)).as_matrix()
+        T[:3, 3] = rng.uniform(-2, 2, 3)
+        noise = np.eye(4)
+        noise[:3, 3] = rng.normal(0, 0.01, 3)
+        tgt[i] = {"name": "chair" if i % 2 else "desk", "pose": T,
+                  "V": V, "F": F}
+        src[i] = {"name": tgt[i]["name"], "pose": noise @ T_off @ T,
+                  "V": V, "F": F}
+    (Tt, mt), (Tj, mj) = TR.register_scenes(tgt, src), \
+        JR.register_scenes(tgt, src)
+    np.testing.assert_array_equal(Tt, Tj)
+    assert mt == mj and len(mt) == 5
+    poses = {k: v["pose"] for k, v in tgt.items()}
+    assert TR.find_correspondences(poses, poses, np.eye(4)) \
+        == JR.find_correspondences(poses, poses, np.eye(4))
+    scene = rng.uniform(-3, 3, (500, 3))
+    for a, b in zip(TAs.assemble_scene(src, alignment=T_off,
+                                       scene_points=scene,
+                                       crop_points_in_boxes=True),
+                    JAs.assemble_scene(src, alignment=T_off,
+                                       scene_points=scene,
+                                       crop_points_in_boxes=True)):
+        _assert_tree_equal(a, b)
+    assert TT.TermColor.wrap("x", TT.TermColor.cyan) \
+        == JT.TermColor.wrap("x", JT.TermColor.cyan)
 
 
 def test_example_tools_run_on_a_sequence(tmp_path, capsys):

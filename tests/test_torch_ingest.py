@@ -303,7 +303,6 @@ def test_run_vio_images_from_disk(raw_sequence, scene, capsys):
 @pytest.mark.parametrize("flags, message", [
     (["--ba", "dense"], "--ba dense is not ported yet"),
     (["--ba", "sharded"], "--ba sharded is not ported yet"),
-    (["--no-imu"], "--no-imu is not ported yet"),
 ])
 def test_run_vio_refuses_what_is_not_ported(flags, message, capsys):
     """No fallback: the flag exits with an error that says so."""

@@ -1,20 +1,24 @@
 """visma_tpu_torch: visma_tpu in PyTorch, with hand-written CUDA kernels for
-Hopper. So far the VIO main path, the semantic mapping path and the
-sequence-ingest path (raw frames -> undistort -> VIO, and its CLIs).
+Hopper. So far the VIO main path (with in-state SLAM landmarks), the
+semantic mapping path, the sequence-ingest path (raw frames -> undistort ->
+VIO, and its CLIs) and the evaluation path (align/, eval/, the evaluate and
+annotate tools).
 
 A port of the JAX package `visma_tpu`, which stays the reference. It
 imports torch and never jax, and nothing of `visma_tpu`: what it needs of
-the reference's numpy-only modules (`proto`, `io`) it keeps as its own
-copies. The layout mirrors the reference:
+the reference's numpy-only modules (`proto`, `io`, `align.registration`,
+`eval.sampling`, `eval.assembly`, `utils.term`) it keeps as its own copies.
+The layout mirrors the reference:
 
   geom/      rodrigues, hat, vee, invrodrigues; SO3 / SE3 (lie.py)
   utils/     health-gate utilities, the device rule (resolve_device),
-             Timer / device_trace, configure_platform
+             full_f32 (no TF32), Timer / device_trace, configure_platform,
+             TermColor
   proto/     vlslam dataclasses and wire codec (numpy)
   io/        sequence loader, glob, JSON and binary maps, synthetic scenes,
              procedural meshes, OBJ/PLY (numpy)
-  filter/    MSCKF: config, state, IMU propagation, triangulation, update;
-             feed.pack_frames (numpy)
+  filter/    MSCKF: config, state, IMU propagation, triangulation, update,
+             in-state SLAM landmarks (slam.py); feed.pack_frames (numpy)
   frontend/  pyramid, corner detection and the per-cell pick (kernel
              csrc/corner_score.cu),
              fused pyramidal LK (kernel csrc/lk_level.cu), the windowed
@@ -28,8 +32,14 @@ copies. The layout mirrors the reference:
              Renderer / MultiMeshRenderer, the edge likelihood (edge_score:
              kernel vt_edge_score in csrc/depth_edge.cu)
   semantic/  batched CEM pose refinement, SemanticMapper
+  align/     Umeyama, brute-force nearest neighbours, voxel grid, ICP,
+             yaw-sweep annotation, scene registration (numpy)
+  eval/      error metrics (point-to-mesh distance: SoA path and the
+             pairwise oracle), quantitative evaluation, sampling and scene
+             assembly (numpy)
   pipeline.py  VioPipeline: images + IMU -> trajectory
-  cli/         undistort_images, run_vio, example_load, example_dump
+  cli/         undistort_images, run_vio, evaluate, annotate, example_load,
+               example_dump
   convert.py   state carried between the reference and the port
   _kernels.py  nvcc build and ctypes loading of csrc/*.cu
 

@@ -8,12 +8,15 @@ visma_tpu/cli/run_vio.py). Three modes:
     packed feature tracks (they become the comparison, not the input);
   synthetic: generate a sequence on the fly (--synthetic N frames).
 
+--no-imu runs the vision-only fallback (constant-velocity process model,
+cfg.use_imu=False); scale is then a gauge freedom, so the report adds the
+ATE after similarity alignment (align.umeyama).
+
 Writes the estimated trajectory as a vlslam dataset (loadable by
 example_load) and prints ATE vs the reference poses when available.
 
 Not ported yet, and refused with an error instead of being replaced by
-something else: `--ba dense|sharded` (needs ba/ and dist/) and `--no-imu`
-(its report needs the similarity alignment of align/umeyama).
+something else: `--ba dense|sharded` (needs ba/ and dist/).
 """
 from __future__ import annotations
 
@@ -35,8 +38,7 @@ def main(argv=None):
     ap.add_argument("--max-tracks", type=int, default=96)
     ap.add_argument("--pixel-noise", type=float, default=0.5)
     ap.add_argument("--no-imu", action="store_true",
-                    help="vision-only mode (constant-velocity prior); not "
-                         "ported yet")
+                    help="vision-only mode (constant-velocity prior)")
     ap.add_argument("--images", action="store_true",
                     help="image-frontend mode: run the full pipeline on "
                          "the sequence's PNG frames instead of its packed "
@@ -62,9 +64,6 @@ def main(argv=None):
 
     if args.ba != "off":
         ap.error(f"--ba {args.ba} is not ported yet (needs ba/ and dist/)")
-    if args.no_imu:
-        ap.error("--no-imu is not ported yet (its report needs the "
-                 "similarity alignment of align/umeyama)")
 
     from visma_tpu_torch.utils.platform import configure_platform
 
@@ -84,17 +83,20 @@ def main(argv=None):
                               pixel_noise=args.pixel_noise)
         cfg = FilterConfig(window=args.window, max_tracks=args.max_tracks,
                            fx=syn.fx, fy=syn.fy, cx=syn.cx, cy=syn.cy,
-                           pixel_noise=max(args.pixel_noise, 0.5))
+                           pixel_noise=max(args.pixel_noise, 0.5),
+                           use_imu=not args.no_imu)
         ds = make_dataset(syn)
-        imu = make_imu(syn)
+        imu = None if args.no_imu else make_imu(syn)
         _, gwc = make_trajectory(syn)
         R0, p0 = gwc[0, :, :3], gwc[0, :, 3]
         ref_p = gwc[:, :, 3]
-        v0 = imu["v0"]
+        v0 = (imu["v0"] if imu is not None
+              else (gwc[1, :, 3] - gwc[0, :, 3]) * syn.fps)
         ts_norm = None
     else:
-        if not args.dataroot or args.imu is None:
-            ap.error("--dataroot and --imu required (or --synthetic N)")
+        if not args.dataroot or (args.imu is None and not args.no_imu):
+            ap.error("--dataroot and --imu required "
+                     "(or --no-imu, or --synthetic N)")
         from visma_tpu_torch.io import VlslamDatasetLoader
 
         loader = VlslamDatasetLoader(args.dataroot)
@@ -103,10 +105,14 @@ def main(argv=None):
         cfg = FilterConfig(window=args.window, max_tracks=args.max_tracks,
                            fx=float(p[0]), fy=float(p[1]), cx=float(p[2]),
                            cy=float(p[3]),
-                           pixel_noise=max(args.pixel_noise, 0.5))
-        imu_npz = np.load(args.imu)
-        imu = {k: imu_npz[k] for k in ("ts", "gyro", "accel")}
-        imu["v0"] = imu_npz.get("v0", np.zeros(3))
+                           pixel_noise=max(args.pixel_noise, 0.5),
+                           use_imu=not args.no_imu)
+        if args.no_imu:
+            imu = None
+        else:
+            imu_npz = np.load(args.imu)
+            imu = {k: imu_npz[k] for k in ("ts", "gyro", "accel")}
+            imu["v0"] = imu_npz.get("v0", np.zeros(3))
         g0 = loader.pose(0)
         R0, p0 = g0[:, :3], g0[:, 3]
         ref_p = np.stack([loader.pose(i)[:, 3] for i in range(len(loader))])
@@ -117,7 +123,11 @@ def main(argv=None):
         ts_norm = np.asarray([pk.ts for pk in ds.packets], np.float64)
         if len(ts_norm) > 1 and np.median(np.diff(ts_norm)) > 1.0:
             ts_norm = ts_norm * 1e-6
-        v0 = imu["v0"]
+        if imu is not None:
+            v0 = imu["v0"]
+        else:
+            dt0 = max(float(ts_norm[1] - ts_norm[0]), 1e-6)
+            v0 = (ref_p[1] - ref_p[0]) / dt0
 
     from visma_tpu_torch.filter.msckf import check_health
     from visma_tpu_torch.utils.timer import Timer, device_trace
@@ -192,6 +202,15 @@ def main(argv=None):
     p_est = outs["p"].cpu().numpy()
     ate = float(np.sqrt(np.mean(np.sum((p_est - ref_p) ** 2, axis=1))))
     report = {"frames": len(p_est), "ate_rmse_m": round(ate, 5)}
+    if args.no_imu:
+        from visma_tpu_torch.align.umeyama import umeyama
+
+        T = umeyama(torch.as_tensor(p_est, dtype=torch.float32, device=device),
+                    torch.as_tensor(ref_p, dtype=torch.float32, device=device),
+                    with_scaling=True).cpu().numpy()
+        pa = p_est @ T[:3, :3].T + T[:3, 3]
+        report["ate_sim_aligned_m"] = round(
+            float(np.sqrt(np.mean(np.sum((pa - ref_p) ** 2, axis=1)))), 5)
     print(json.dumps(report))
 
     if args.output:

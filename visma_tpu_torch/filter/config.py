@@ -78,8 +78,7 @@ class FilterConfig:
     min_depth: float = 0.05
     max_depth: float = 50.0
 
-    # hybrid MSCKF + SLAM landmarks (filter/slam.py in the reference; not
-    # ported yet, so the port's filter requires num_slam == 0)
+    # hybrid MSCKF + SLAM landmarks (filter/slam.py)
     num_slam: int = 0
     schmidt: bool = False
     max_promote: int = 2

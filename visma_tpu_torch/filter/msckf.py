@@ -10,8 +10,8 @@ Parity notes (each pinned in tests/test_torch_filter.py):
     cast to int before `torch.argmax`, which also returns the first.
   * `.at[].max` scatters (msckf.py:170-172) are
     `scatter_reduce("amax", include_self=True)`.
-  * `lax.top_k` (msckf.py:228) returns ties lowest index first: a stable
-    descending sort does the same.
+  * `lax.top_k` (msckf.py:228, :385) returns ties lowest index first: a
+    stable descending sort does the same.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.imu import propagate, propagate_cv
+from visma_tpu_torch.filter.slam import in_state, slam_promote, slam_update
 from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
 from visma_tpu_torch.filter.update import msckf_update
 from visma_tpu_torch.geom.rotations import hat, rodrigues
@@ -64,7 +65,8 @@ def check_health(outs: Dict[str, torch.Tensor]) -> None:
 
 def _frame_outputs(cfg: FilterConfig, s: FilterState) -> Dict[str, torch.Tensor]:
     """Per-frame export record: pose, track-table snapshot (feat_xp is the
-    newest observed pixel) and the health flag (msckf.py:36-67)."""
+    newest observed pixel), the health flag and, with SLAM landmarks, their
+    ids and positions (msckf.py:36-67)."""
     tracks = s.tracks
     M = tracks.obs.shape[1]
     K = tracks.ids.shape[0]
@@ -82,6 +84,9 @@ def _frame_outputs(cfg: FilterConfig, s: FilterState) -> Dict[str, torch.Tensor]
         "feat_xp": xp_last,
         "healthy": finite_tree((s.R, s.p, s.v, s.bg, s.ba, s.P)),
     }
+    if cfg.num_slam:
+        out["lm_ids"] = s.lm_ids
+        out["lm_xw"] = s.lm_xw
     return out
 
 
@@ -250,9 +255,6 @@ class Msckf:
 def _frame_step(cfg: FilterConfig, state: FilterState,
                 frame: Dict[str, torch.Tensor]) -> FilterState:
     """One frame (msckf.py:319-417)."""
-    if cfg.num_slam:
-        raise NotImplementedError(
-            "SLAM landmarks (num_slam > 0) are not ported yet")
     i32 = torch.int32
     # 1. propagation to the frame time
     if cfg.use_imu:
@@ -267,9 +269,17 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
         omega = None
     # 2. clone the camera pose into the window
     state = _augment(cfg, state, omega)
+    # 2b. SLAM landmark update from this frame's observations of in-state
+    # landmarks (the newest clone measures); in-state ids are then hidden
+    # from the track table so no observation is used twice
+    valid_tab = frame["valid"]
+    if cfg.num_slam:
+        state = slam_update(cfg, state, frame["ids"], frame["xp"],
+                            frame["valid"])
+        valid_tab = valid_tab & ~in_state(state.lm_ids, frame["ids"])
     # 3. ingest feature observations
     tracks, lost = _ingest(cfg, state.tracks, frame["ids"], frame["xp"],
-                           frame["valid"])
+                           valid_tab)
     state = state.replace(tracks=tracks)
     # 4. MSCKF update on mature tracks
     sel, sel_valid = _select_for_update(cfg, tracks, lost)
@@ -288,6 +298,22 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
     keep = used & still_seen
     drop = used & ~still_seen
 
+    # promote the best still-tracked consumed features into landmark slots;
+    # promoted features leave the track table (their next observations feed
+    # slam_update) and export INSTATE this frame
+    prom_sel = torch.zeros_like(keep)
+    if cfg.num_slam and cfg.max_promote:
+        sel_mask_v = sel_mask & state.win_valid[None, :]
+        nobs_sel = torch.sum(sel_mask_v, dim=1, dtype=i32)
+        score = keep.to(i32) * (1 + nobs_sel)
+        topv, topi = top_k_stable(score, cfg.max_promote)
+        state, prom_done = slam_promote(
+            cfg, state, X[topi], sel_obs[topi], sel_mask_v[topi],
+            tracks.ids[sel][topi], topv > 0)
+        prom_sel = prom_sel.index_put((topi,), prom_done)
+        keep = keep & ~prom_sel
+        drop = drop | prom_sel
+
     newest_only = torch.zeros_like(sel_mask_now)
     newest_only[:, M - 1] = True
     new_sel_mask = torch.where(
@@ -300,9 +326,11 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
 
     status = old.status.clone()
     status[sel] = torch.where(
-        drop, c(_GOODDROP),
-        torch.where(rejected, c(_REJECT),
-                    torch.where(keep, c(_KEEP), old.status[sel])))
+        prom_sel, c(_INSTATE),
+        torch.where(drop, c(_GOODDROP),
+                    torch.where(rejected, c(_REJECT),
+                                torch.where(keep, c(_KEEP),
+                                            old.status[sel]))))
     mask = old.mask.clone()
     mask[sel] = new_sel_mask
     tracks = TrackTable(ids=old.ids, status=status, obs=old.obs, mask=mask,

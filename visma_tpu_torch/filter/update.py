@@ -152,6 +152,10 @@ def msckf_update(cfg: FilterConfig, state: FilterState,
     L = _cholesky(0.5 * (S + S.T))
     PHt = P @ Rc.T
     K = torch.cholesky_solve(PHt.T, L).T
+    if cfg.num_slam and cfg.schmidt:
+        # Schmidt/consider landmarks: zero gain on the landmark block in
+        # every update, not only the landmark update (filter/slam.py)
+        K = zero_landmark_gain(cfg, K)
     dx = K @ rc
 
     IKH = eye - K @ Rc
@@ -166,10 +170,17 @@ def msckf_update(cfg: FilterConfig, state: FilterState,
     return state, use, rejected, X
 
 
+def zero_landmark_gain(cfg: FilterConfig, K: torch.Tensor) -> torch.Tensor:
+    """`K.at[cfg.slam_idx:].set(0.0)`: zero the landmark rows of a gain."""
+    rows = torch.arange(K.shape[0], device=K.device)
+    return torch.where((rows >= cfg.slam_idx)[:, None],
+                       torch.zeros((), dtype=K.dtype, device=K.device), K)
+
+
 def apply_correction(cfg: FilterConfig, state: FilterState,
                      dx: torch.Tensor) -> FilterState:
     """Inject the error-state correction dx into the nominal state
-    (update.py:192-222; SLAM landmarks are not ported)."""
+    (update.py:192-222)."""
     M = cfg.window
     R = rodrigues(dx[0:3]) @ state.R
     dwin = dx[15:15 + 6 * M].reshape(M, 6)
@@ -187,4 +198,8 @@ def apply_correction(cfg: FilterConfig, state: FilterState,
             p_bc=state.p_bc + dx[c + 3:c + 6])
     if cfg.estimate_td:
         state = state.replace(td=state.td + dx[cfg.td_idx])
+    if cfg.num_slam:
+        s = cfg.slam_idx
+        state = state.replace(
+            lm_xw=state.lm_xw + dx[s:s + 3 * cfg.num_slam].reshape(-1, 3))
     return state

@@ -2,6 +2,8 @@
 port's device rule."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,6 +18,25 @@ def resolve_device(device=None) -> torch.device:
             "visma_tpu_torch runs on a CUDA device and none is available; "
             "pass device=\"cpu\" to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 matrix products at full float32 precision inside the block
+    (and, as a decorator, inside the function), whatever the caller set: a
+    `torch.set_float32_matmul_precision("high")` elsewhere would bring TF32
+    back. The GPU form of the reference's `Precision.HIGHEST`."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """A numpy array, list or tensor as a float32 tensor on `device`."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def _float_leaves(x):
