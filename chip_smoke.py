@@ -48,6 +48,21 @@ card at the shapes the path gives it:
             2 desks, a ~500k-point cloud; gates of tests/test_eval.py:165)
             and the annotate tool on each object's part of that cloud. No
             hand kernel: the reference computes this path in XLA.
+  ba        trajectory refinement (ba/, Msckf.run_batched; no hand kernel,
+            the reference computes it in XLA): one GN step and a 10-step
+            ba_solve at the multichip dryrun's size (32 poses x 2048
+            landmarks) held to the port's CPU step (2e-4 m) and to the JAX
+            package's solved cost (1e-3 relative) and poses (2e-2 m); the
+            128 x 8192 instance (cost 1e-3, ms a GN step, peak memory); the
+            VIO scene again through VioPipeline.run (K1, K2), then
+            ba_problem_from_vio + ba_solve + refine_trajectory (ATE <
+            2.5 x the filter's + 5 mm, tests/test_ba_from_vio.py:150);
+            `run_vio --synthetic 48 --no-imu --ba dense` (similarity-aligned
+            ATE below the filter's, both datasets loadable; --ba sharded
+            refused); the pose-graph loop closure of tests/test_ba.py
+            (< 2 cm, < a quarter of the drift); Msckf.run_batched over 64
+            feature feeds of 240 frames: rows 0 and 63 equal to Msckf.run
+            to 1e-5 over the first 30 frames, every row's ATE < 1 cm.
 
 For each path that runs kernels the launch counts are set to 0 just before
 it runs and read just after, and must equal what the schedule implies. No
@@ -117,6 +132,67 @@ SURFACE_SAMPLE_TOL_M = 4e-4
 BENCH_ICP_FITNESS = 0.993
 ICP_REF_CORRESPONDENCES = 728
 ICP_REF_RMSE_M = 0.018558146432042122
+
+# bundle adjustment: the multichip dryrun's problem and the large instance
+# (__graft_entry__.py:58, :213), with the reference's cross-implementation
+# tolerances (one GN step :70-71, a solve :113-118) and the VIO -> BA gate
+# of tests/test_ba_from_vio.py:150
+BA_DRYRUN = (32, 2048, 10)        # poses, landmarks, GN iterations
+BA_LARGE = (128, 8192, 8)
+BA_STEP_TOL_M = 2e-4
+BA_COST_REL = 1e-3
+BA_POSE_TOL_M = 2e-2
+BA_STRIDE = 4
+BA_ITERS = 10
+BA_CLI_FRAMES = 48
+POSE_GRAPH_NODES = 12
+POSE_GRAPH_ITERS = 15
+BATCH_STREAMS = 64                # visma_tpu/filter/msckf.py:280-285
+BATCH_TOL_M = 1e-5                # tests/test_filter.py:211-213
+BATCH_HORIZON = 30                # the frames of that test
+BATCH_SEGMENT = 24                # frames a run_batched call
+# the JAX package's ba_solve on these problems (synthetic_ba_problem with
+# noise_px 0.5, pose_noise 0.02, seed 0), run on the CPU at commit 18fd3f8:
+# final total_cost, and for the dryrun's problem the solved positions.
+# tests/test_torch_ba.py pins the dryrun's; to reproduce either:
+#   JAX_PLATFORMS=cpu python -c "from visma_tpu.ba.gauss_newton import *;
+#   from visma_tpu.ba.problem import synthetic_ba_problem as s;
+#   p, _ = s(128, 8192, 0.5, 0.02); q, _ = ba_solve(p, iters=8);
+#   print(repr(float(total_cost(q))))"
+BA_REF_COST = {(32, 2048): 11277.4638671875, (128, 8192): 187307.796875}
+BA_REF_P_32 = [
+    [2.5, 0.0, 1.2000000476837158],
+    [2.4997165203094482, 0.03089355304837227, 1.2029550075531006],
+    [2.499526262283325, 0.06010865047574043, 1.2055652141571045],
+    [2.4979758262634277, 0.09185191988945007, 1.2083872556686401],
+    [2.497105836868286, 0.12182259559631348, 1.2111848592758179],
+    [2.49556303024292, 0.1520807147026062, 1.2136443853378296],
+    [2.493445873260498, 0.18251937627792358, 1.2166454792022705],
+    [2.4913830757141113, 0.2131311595439911, 1.2195093631744385],
+    [2.488645553588867, 0.24369050562381744, 1.2221672534942627],
+    [2.485138416290283, 0.27327558398246765, 1.2255361080169678],
+    [2.481792449951172, 0.30446770787239075, 1.227683186531067],
+    [2.4778387546539307, 0.3345594108104706, 1.2300548553466797],
+    [2.4740679264068604, 0.36471816897392273, 1.2328182458877563],
+    [2.4700663089752197, 0.3946147859096527, 1.2353731393814087],
+    [2.465104341506958, 0.4246549904346466, 1.2384098768234253],
+    [2.460130453109741, 0.454720675945282, 1.2412196397781372],
+    [2.4545388221740723, 0.48389023542404175, 1.2437115907669067],
+    [2.4485135078430176, 0.5143647193908691, 1.2464655637741089],
+    [2.442854404449463, 0.5440285205841064, 1.2489837408065796],
+    [2.4361090660095215, 0.5749799609184265, 1.2509863376617432],
+    [2.4292099475860596, 0.6038573384284973, 1.2536016702651978],
+    [2.421459913253784, 0.6340291500091553, 1.2558828592300415],
+    [2.414555549621582, 0.663364052772522, 1.2580463886260986],
+    [2.406233787536621, 0.6934967041015625, 1.2605633735656738],
+    [2.3983724117279053, 0.7214130759239197, 1.2625318765640259],
+    [2.389657497406006, 0.7507282495498657, 1.265001654624939],
+    [2.3809595108032227, 0.7801379561424255, 1.2665170431137085],
+    [2.3711376190185547, 0.8102691173553467, 1.269141674041748],
+    [2.3612895011901855, 0.8387373089790344, 1.2708990573883057],
+    [2.351461887359619, 0.8671496510505676, 1.2724632024765015],
+    [2.3412656784057617, 0.8959563374519348, 1.2751638889312744],
+    [2.3298215866088867, 0.9244268536567688, 1.277034044265747]]
 
 
 def check(cond, msg):
@@ -1820,6 +1896,376 @@ def slam_phase(dev, scene, direct_ate, card):
     return launches
 
 
+def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
+                 step=True):
+    """`synthetic_ba_problem(num_poses, num_landmarks, 0.5, 0.02)` on `dev`:
+    with `step`, one GN step at damping 1e-3 with the scale anchor held to
+    the port's CPU step on the same problem (max |dp| < 2e-4); then
+    `ba_solve(iters)`, its final cost within 1e-3 relative of `ref_cost`
+    (the JAX package's) and, given `ref_p`, its positions within 2e-2 m of
+    the JAX package's. Times by CUDA events. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.ba.gauss_newton import ba_solve, ba_step, total_cost
+    from visma_tpu_torch.ba.problem import synthetic_ba_problem
+
+    prob, _ = synthetic_ba_problem(num_poses, num_landmarks, 0.5, 0.02,
+                                   device=dev)
+    out = {"poses": num_poses, "landmarks": num_landmarks, "iters": iters}
+    if step:
+        cpu = torch.device("cpu")
+        prob_cpu, _ = synthetic_ba_problem(num_poses, num_landmarks, 0.5,
+                                           0.02, device=cpu)
+        p0 = prob_cpu.p.numpy()
+        anchor = float(np.linalg.norm(p0[-1] - p0[0]))
+        a_dev = torch.tensor(anchor, device=dev)
+        got, _ = ba_step(prob, 1e-3, a_dev)
+        ref, _ = ba_step(prob_cpu, 1e-3, torch.tensor(anchor))
+        out["step_max_dp_m"] = float((got.p.cpu() - ref.p).abs().max())
+        check(out["step_max_dp_m"] < BA_STEP_TOL_M,
+              f"ba_step on {dev} != the CPU step: max |dp| "
+              f"{out['step_max_dp_m']}")
+        out["step_ms"] = cuda_ms(lambda: ba_step(prob, 1e-3, a_dev), reps=5,
+                                 warmup=1)
+    sol, hist = ba_solve(prob, iters=iters)
+    cost = float(total_cost(sol))
+    out["cost"], out["cost_ref"] = cost, ref_cost
+    out["cost_rel"] = (cost - ref_cost) / ref_cost
+    check(np.isfinite(hist.cpu().numpy()).all(), "ba_solve: non-finite cost")
+    check(abs(out["cost_rel"]) < BA_COST_REL,
+          f"ba_solve cost {cost} vs the JAX package's {ref_cost}")
+    if ref_p is not None:
+        out["max_dp_ref_m"] = float(np.abs(sol.p.cpu().numpy()
+                                           - np.asarray(ref_p)).max())
+        check(out["max_dp_ref_m"] < BA_POSE_TOL_M,
+              f"ba_solve poses {out['max_dp_ref_m']} m from the JAX "
+              "package's")
+    out["solve_ms"] = cuda_ms(lambda: ba_solve(prob, iters=iters), reps=3,
+                              warmup=1)
+    out["ms_per_gn_step"] = out["solve_ms"] / iters
+    return out
+
+
+def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
+              iters=BA_ITERS):
+    """The VIO scene through `VioPipeline.run` on `dev` (launch counts set to
+    0 just before, read just after), then the trajectory refinement of
+    `run_vio --ba dense`: `ba_problem_from_vio` from the tracker's own
+    observations and the filter's poses, `ba_solve`, `refine_trajectory`.
+    Gates: ATE of the refined trajectory < 2.5 x the filter's + 5 mm
+    (tests/test_ba_from_vio.py:150), rotations orthonormal to 1e-4.
+    Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.ba.from_vio import (ba_problem_from_vio,
+                                             refine_trajectory)
+    from visma_tpu_torch.ba.gauss_newton import ba_solve, total_cost
+    from visma_tpu_torch.filter.msckf import check_health
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    cfg, gwc, imu = scene["cfg"], scene["gwc"], scene["imu"]
+    seq = (scene["images"], scene["gyro"], scene["accel"], scene["dts"])
+    N = seq[0].shape[0]
+    pipe = VioPipeline(cfg, levels=levels, cell=cell, device=dev)
+    frame0 = torch.as_tensor(scene["frames"][0], device=dev)
+    corner_score.launches = 0
+    lk_track.launches = 0
+    final, outs = pipe.run(pipe.init(frame0, R0=gwc[0, :, :3],
+                                     p0=gwc[0, :, 3], v0=imu["v0"]), *seq)
+    launches = {"corner_score": corner_score.launches,
+                "lk_track": lk_track.launches}
+    check_health(outs)
+    R_est, p_est = outs["R"].cpu().numpy(), outs["p"].cpu().numpy()
+    ref = gwc[1:, :, 3]
+
+    t0 = time.time()
+    prob, info = ba_problem_from_vio(
+        outs["obs_ids"].cpu().numpy(), outs["obs_xp"].cpu().numpy(),
+        outs["obs_valid"].cpu().numpy(), R_est, p_est,
+        (cfg.fx, cfg.fy, cfg.cx, cfg.cy), R_bc=cfg.cam_R_bc,
+        p_bc=cfg.cam_p_bc, stride=stride,
+        max_landmarks=2 * cfg.max_tracks * max(N // stride, 1), device=dev)
+    assembly_ms = (time.time() - t0) * 1e3
+    check(prob is not None, "VIO -> BA: too few landmarks")
+    cost0 = float(total_cost(prob))
+    sol, hist = ba_solve(prob, iters=iters)
+    solve_ms = cuda_ms(lambda: ba_solve(prob, iters=iters), reps=3, warmup=1)
+    R_ba, p_ba = refine_trajectory(sol, info, R_est, p_est, cfg.cam_R_bc,
+                                   cfg.cam_p_bc)
+
+    def ate(pp):
+        return float(np.sqrt(np.mean(np.sum((pp - ref) ** 2, axis=1))))
+
+    res = {"frames": N, "keyframes": len(info["kf"]),
+           "landmarks": int(prob.num_landmarks), "assembly_host_ms":
+           assembly_ms, "solve_ms": solve_ms, "cost0": cost0,
+           "cost": float(hist[-1]), "ate_filter_m": ate(p_est),
+           "ate_ba_m": ate(p_ba),
+           "orthonormal_err": float(np.abs(
+               np.einsum("nij,nkj->nik", R_ba, R_ba) - np.eye(3)).max())}
+    check(np.isfinite(p_ba).all(), "VIO -> BA: non-finite trajectory")
+    check(res["cost"] < cost0, "VIO -> BA: the cost did not go down")
+    check(res["ate_ba_m"] < 2.5 * res["ate_filter_m"] + 0.005,
+          f"VIO -> BA damaged the trajectory: {res['ate_filter_m']} -> "
+          f"{res['ate_ba_m']} m")
+    check(res["orthonormal_err"] < 1e-4,
+          f"VIO -> BA rotations off SO(3) by {res['orthonormal_err']}")
+    return launches, res
+
+
+def ba_cli(root, device_args=()):
+    """`run_vio --synthetic 48 --pixel-noise 1.0 --no-imu --ba dense
+    --ba-stride 2`: the similarity-aligned ATE of the refined trajectory
+    below the filter's (tests/test_ba_from_vio.py:234), both datasets
+    loadable through the port's loader with 48 packets; `--ba sharded`
+    exits non-zero naming dist/. Returns the report."""
+    import contextlib
+    import io
+    import shutil
+
+    from visma_tpu_torch.cli import run_vio
+    from visma_tpu_torch.io import VlslamDatasetLoader
+
+    out = os.path.join(root, "est")
+    report = run_vio.main(["--synthetic", str(BA_CLI_FRAMES),
+                           "--pixel-noise", "1.0", "--no-imu", "--ba",
+                           "dense", "--ba-stride", "2", "--output", out,
+                           *device_args])
+    check(report.get("ba") == "dense", f"run_vio --ba dense: {report}")
+    check(report["ate_ba_sim_aligned_m"] < report["ate_sim_aligned_m"],
+          f"run_vio --ba dense did not improve: {report}")
+    os.makedirs(os.path.join(root, "ba"))
+    shutil.copy(os.path.join(out, "dataset_ba"),
+                os.path.join(root, "ba", "dataset"))
+    for d in (out, os.path.join(root, "ba")):
+        n = len(VlslamDatasetLoader(d))
+        check(n == BA_CLI_FRAMES, f"{d}: {n} packets")
+    err = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err):
+        try:
+            run_vio.main(["--synthetic", "8", "--ba", "sharded",
+                          *device_args])
+        except SystemExit as e:
+            code = e.code
+    check(code not in (None, 0) and "dist/" in err.getvalue(),
+          f"run_vio --ba sharded: exit {code}, {err.getvalue()!r}")
+    return report
+
+
+def pose_graph_circle(dev, K=POSE_GRAPH_NODES, iters=POSE_GRAPH_ITERS):
+    """tests/test_ba.py:70-115 on `dev`: K poses on a circle, a drifting
+    odometry chain as the estimate, exact odometry edges and one loop
+    closure. Gates: max position error < 0.02 m and < a quarter of the
+    drift. Returns the numbers."""
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from visma_tpu_torch.ba.pose_graph import pose_graph_solve
+
+    rng = np.random.default_rng(1)
+    th = 2 * np.pi * np.arange(K) / K
+    R_gt = Rotation.from_euler("z", th[:, None]).as_matrix()
+    p_gt = np.stack([np.cos(th), np.sin(th), np.zeros(K)], axis=1)
+    R_est, p_est = [R_gt[0]], [p_gt[0]]
+    for k in range(1, K):
+        dR = R_gt[k - 1].T @ R_gt[k]
+        dp = R_gt[k - 1].T @ (p_gt[k] - p_gt[k - 1])
+        nR = Rotation.from_rotvec(rng.normal(scale=0.03, size=3)).as_matrix()
+        R_est.append(R_est[-1] @ dR @ nR)
+        p_est.append(p_est[-1] + R_est[-2] @ dp
+                     + rng.normal(scale=0.02, size=3))
+    drift = float(np.linalg.norm(np.asarray(p_est) - p_gt, axis=1).max())
+    ei = list(range(K - 1)) + [K - 1]
+    ej = list(range(1, K)) + [0]
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    args = (f32(R_est), f32(p_est),
+            torch.as_tensor(ei, dtype=torch.int32, device=dev),
+            torch.as_tensor(ej, dtype=torch.int32, device=dev),
+            f32([R_gt[i].T @ R_gt[j] for i, j in zip(ei, ej)]),
+            f32([R_gt[i].T @ (p_gt[j] - p_gt[i]) for i, j in zip(ei, ej)]))
+    _, p_opt = pose_graph_solve(*args, iters=iters)
+    err = float(np.linalg.norm(p_opt.cpu().numpy() - p_gt, axis=1).max())
+    check(err < 0.02 and err < 0.25 * drift,
+          f"pose graph: error {err} m against drift {drift} m")
+    ms = cuda_ms(lambda: pose_graph_solve(*args, iters=iters), reps=3,
+                 warmup=1)
+    return {"nodes": K, "edges": len(ei), "iters": iters, "err_m": err,
+            "drift_m": drift, "ms": ms}
+
+
+def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
+                    max_updates=24, window=8, horizon=BATCH_HORIZON,
+                    segment=BATCH_SEGMENT):
+    """`Msckf.run_batched` over B synthetic feature feeds of `n_frames`
+    frames with IMU, one seed each (the landmarks differ, the trajectory is
+    shared; the feed's default noise-free pixels, the filter's 0.5 px
+    noise), at the VIO settings, in calls of `segment` frames (the state
+    carries over; the times of the calls are summed). Streams 0 and B-1
+    also go through `Msckf.run`.
+
+    Gates: the rows of both streams equal to `run` to 1e-5 m over the first
+    `horizon` frames (tests/test_filter.py:189-213); every row finite with
+    an ATE < 1 cm (tests/test_filter.py:182, a noise-free feed). Reported, not gated: the
+    rows against `run` over all frames, and at each segment's first frame
+    one batched step against `Msckf.step` on row 0 of the same state. A
+    batched matrix product or factorisation rounds apart from a single one,
+    and the filter amplifies that over a run. Returns the numbers, with
+    aggregate frames/s of the batch against one stream's (host clock)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from visma_tpu_torch.filter import FilterConfig, Msckf, stack_states
+    from visma_tpu_torch.filter.feed import pack_frames
+    from visma_tpu_torch.filter.msckf import check_health
+    from visma_tpu_torch.io.synthetic import (SyntheticConfig, make_dataset,
+                                              make_imu, make_trajectory)
+
+    t0 = time.time()
+    syn = SyntheticConfig(num_frames=n_frames)
+    cfg = FilterConfig(window=window, max_tracks=max_tracks,
+                       max_updates=max_updates, fx=syn.fx, fy=syn.fy,
+                       cx=syn.cx, cy=syn.cy, pixel_noise=0.5)
+    # no IMU noise: the samples follow the trajectory alone, one for all
+    imu = make_imu(syn)
+    _, gwc = make_trajectory(syn)
+    packs = [pack_frames(cfg, make_dataset(replace(syn, seed=s)), imu,
+                         max_feats=max_tracks) for s in range(B)]
+    frames = {k: torch.as_tensor(np.stack([pk[k] for pk in packs]),
+                                 device=dev)
+              for k in packs[0] if k != "ts"}
+    make_s = time.time() - t0
+    kf = Msckf(cfg, device=dev)
+    s0 = kf.init(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+    cur = stack_states([s0] * B)
+    kf.run_batched(cur, {k: v[:, :2] for k, v in frames.items()})
+
+    batched_s, step_dp, ps = 0.0, [], []
+    for j in range(0, n_frames, segment):
+        one = kf.step(tree_map(lambda t: t[0], cur),
+                      {k: v[0, j] for k, v in frames.items()})
+        nxt, _ = kf.run_batched(cur, {k: v[:, j:j + 1]
+                                      for k, v in frames.items()})
+        step_dp.append(float((one.p - nxt.p[0]).abs().max()))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cur, out = kf.run_batched(cur, {k: v[:, j:j + segment]
+                                        for k, v in frames.items()})
+        torch.cuda.synchronize()
+        batched_s += time.time() - t0
+        ps.append(out["p"])
+    p_b = torch.cat(ps, dim=1).cpu().numpy()
+    check(np.isfinite(p_b).all(), "run_batched: non-finite positions")
+    ate = np.sqrt(np.mean(np.sum((p_b - gwc[None, :, :, 3]) ** 2, axis=2),
+                          axis=1))
+    check(ate.max() < 0.01, f"run_batched: a row's ATE {ate.max()} m")
+    res = {"streams": B, "frames": n_frames, "make_host_s": make_s,
+           "batched_s": batched_s, "horizon": horizon, "segment": segment,
+           "step_dp_m": step_dp, "ate_min_m": float(ate.min()),
+           "ate_max_m": float(ate.max())}
+    for b in (0, B - 1):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, o = kf.run(s0, {k: v[b] for k, v in frames.items()})
+        torch.cuda.synchronize()
+        res["single_s"] = time.time() - t0
+        check_health(o)
+        d = np.abs(o["p"].cpu().numpy() - p_b[b]).max(axis=1)
+        res[f"run_dp_{horizon}_stream_{b}_m"] = float(d[:horizon].max())
+        res[f"run_dp_all_stream_{b}_m"] = float(d.max())
+        check(d[:horizon].max() <= BATCH_TOL_M,
+              f"run_batched row {b} != run on stream {b} over the first "
+              f"{horizon} frames: {d[:horizon].max()} m")
+    res["batched_frames_per_s"] = B * n_frames / batched_s
+    res["single_frames_per_s"] = n_frames / res["single_s"]
+    return res
+
+
+def ba_phase(dev, vio_scene, card):
+    """The trajectory-refinement path on the card: (a) BA at the multichip
+    dryrun's size against the JAX package, (b) the large instance, (c) VIO
+    -> BA on the VIO bench scene (K1, K2 on the card), (d) `run_vio --ba
+    dense`, (e) the pose-graph loop closure, (f) `Msckf.run_batched` at 64
+    streams. Returns the launches of (c)."""
+    import tempfile
+
+    import torch
+
+    K, L, it = BA_DRYRUN
+    a = ba_synthetic(dev, K, L, it, BA_REF_COST[(K, L)], BA_REF_P_32)
+    log(f"ba: (a) {K} poses x {L} landmarks: one GN step {a['step_ms']:.3f}"
+        f" ms, max |dp| {a['step_max_dp_m']:.3e} m against the CPU step "
+        f"(tol {BA_STEP_TOL_M}); ba_solve({it}) {a['solve_ms']:.3f} ms "
+        f"({a['ms_per_gn_step']:.3f} ms a GN step), cost {a['cost']:.4f} "
+        f"(JAX package {a['cost_ref']}, rel {a['cost_rel']:+.2e}), poses "
+        f"{a['max_dp_ref_m']:.3e} m from the JAX package's [{card}]")
+
+    K, L, it = BA_LARGE
+    torch.cuda.reset_peak_memory_stats()
+    b = ba_synthetic(dev, K, L, it, BA_REF_COST[(K, L)], step=False)
+    b["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"ba: (b) {K} poses x {L} landmarks: ba_solve({it}) "
+        f"{b['solve_ms']:.3f} ms ({b['ms_per_gn_step']:.3f} ms a GN step), "
+        f"cost {b['cost']:.4f} (JAX package {b['cost_ref']}, rel "
+        f"{b['cost_rel']:+.2e}), peak device memory {b['peak_mib']:.1f} MiB "
+        f"[{card}]")
+
+    launches, c = vio_to_ba(dev, vio_scene)
+    log(f"ba: (c) VIO -> BA on the VIO scene ({c['frames']} frames): "
+        f"{c['keyframes']} keyframes, {c['landmarks']} landmarks, assembly "
+        f"{c['assembly_host_ms']:.1f} ms on the host, ba_solve({BA_ITERS}) "
+        f"{c['solve_ms']:.3f} ms, cost {c['cost0']:.1f} -> {c['cost']:.1f}; "
+        f"ATE filter {c['ate_filter_m'] * 100:.3f} cm -> BA "
+        f"{c['ate_ba_m'] * 100:.3f} cm (gate < 2.5x + 0.5 cm), rotations "
+        f"orthonormal to {c['orthonormal_err']:.1e}; launches {launches} "
+        f"[{card}]")
+    want = {"corner_score": c["frames"] + 1, "lk_track": c["frames"]}
+    check(launches == want, f"ba launches {launches} != {want}")
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        report = ba_cli(root)
+    log(f"ba: (d) run_vio --synthetic {BA_CLI_FRAMES} --no-imu --ba dense "
+        f"--ba-stride 2 in {time.time() - t0:.1f} s: {report}; --ba sharded "
+        "refused")
+
+    e = pose_graph_circle(dev)
+    log(f"ba: (e) pose graph, {e['nodes']} nodes / {e['edges']} edges, "
+        f"{e['iters']} iterations: {e['ms']:.3f} ms, error "
+        f"{e['err_m']:.3e} m (drift {e['drift_m']:.4f} m) [{card}]")
+
+    f = batched_streams(dev)
+    last, h = f["streams"] - 1, f["horizon"]
+    log(f"ba: (f) run_batched, {f['streams']} streams x {f['frames']} "
+        f"frames in calls of {f['segment']}: {f['batched_s']:.2f} s = "
+        f"{f['batched_frames_per_s']:.1f} frames/s aggregate; one stream "
+        f"through run {f['single_s']:.2f} s = "
+        f"{f['single_frames_per_s']:.1f} frames/s; rows 0 / {last} against "
+        f"run over the first {h} frames {f[f'run_dp_{h}_stream_0_m']:.2e} / "
+        f"{f[f'run_dp_{h}_stream_{last}_m']:.2e} m (tol {BATCH_TOL_M}), "
+        f"over all frames {f['run_dp_all_stream_0_m']:.2e} / "
+        f"{f[f'run_dp_all_stream_{last}_m']:.2e} m; one batched step "
+        f"against Msckf.step on row 0 at each call's first frame: max "
+        f"{max(f['step_dp_m']):.2e} m; ATE of the {f['streams']} rows "
+        f"{f['ate_min_m']:.3e}-{f['ate_max_m']:.3e} m; feeds "
+        f"made in {f['make_host_s']:.1f} s on the host [{card}]")
+    log("ba: " + json.dumps({"dryrun": a, "large": b, "vio_to_ba": c,
+                             "cli": report, "pose_graph": e,
+                             "batched": f}))
+    return launches
+
+
 def place(V, T):
     import numpy as np
 
@@ -2167,7 +2613,8 @@ def main():
     by_path = {"vio": vio_launches,
                "semantic": semantic_phase(dev, kernels),
                "ingest": ingest_phase(dev, kernels, vio_ate),
-               "slam": slam_phase(dev, vio_scene, vio_ate, card)}
+               "slam": slam_phase(dev, vio_scene, vio_ate, card),
+               "ba": ba_phase(dev, vio_scene, card)}
     del vio_scene
     eval_phase(dev, card)
 

@@ -2,7 +2,9 @@
 package `visma_tpu` blocked, its sources name neither, its own copies of
 the numpy-only `proto`, `io`, `align.registration`, `eval.sampling`,
 `eval.assembly` and `utils.term` modules give what the reference's give,
-and its entry points want the card unless told otherwise."""
+its copy of `ba.from_vio`'s host numpy is the reference's source apart
+from the device, and its entry points want the card unless told
+otherwise."""
 import os
 import re
 import subprocess
@@ -40,7 +42,7 @@ def test_imports_with_jax_blocked():
         "    visma_tpu_torch.__path__, 'visma_tpu_torch.')]\n"
         f"mods += {SMOKE_IMPORTS!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 55, mods\n"
+        "assert len(mods) >= 60, mods\n"
         "for m in ('cli.run_vio', 'cli.undistort_images', 'cli.example_load',\n"
         "          'cli.example_dump', 'io.loader', 'io.glob', 'io.binary',\n"
         "          'io.json_io', 'filter.feed', 'frontend.klt',\n"
@@ -49,7 +51,8 @@ def test_imports_with_jax_blocked():
         "          'align.nn', 'align.voxel', 'align.icp', 'align.annotation',\n"
         "          'align.registration', 'eval.metrics', 'eval.evaluate',\n"
         "          'eval.sampling', 'eval.assembly', 'utils.term',\n"
-        "          'cli.evaluate', 'cli.annotate'):\n"
+        "          'cli.evaluate', 'cli.annotate', 'ba', 'ba.problem',\n"
+        "          'ba.gauss_newton', 'ba.pose_graph', 'ba.from_vio'):\n"
         "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"
@@ -123,6 +126,15 @@ def test_entry_points_want_the_card():
         refine_pose_cem_batched(mr, np.zeros((32, 32), np.float32), pose,
                                 np.zeros(1, np.int64))
     assert SemanticMapper(intr, db, device="cpu").device.type == "cpu"
+
+    from visma_tpu_torch.ba.problem import make_problem, synthetic_ba_problem
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic_ba_problem(num_poses=3, num_landmarks=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_problem(np.eye(3)[None], np.zeros((1, 3)), np.zeros((1, 3)),
+                     np.zeros((1, 1, 2)), np.ones((1, 1), bool), 1, 1, 0, 0)
+    assert synthetic_ba_problem(3, 8, device="cpu")[0].R.device.type == "cpu"
 
     from visma_tpu_torch.align import icp, register_model_to_scene
     from visma_tpu_torch.cli import annotate, evaluate
@@ -374,3 +386,42 @@ def test_example_tools_run_on_a_sequence(tmp_path, capsys):
         assert (tmp_path / "t" / rel).read_text() \
             == (tmp_path / "j" / rel).read_text() != ""
     assert (tmp_path / "t" / "image" / "000000.jpg").exists()
+
+
+def test_from_vio_copy_is_the_reference_source():
+    """`ba.from_vio` is host numpy in both packages: the port's helpers are
+    the reference's source line for line, and the two entry points differ
+    only where the problem goes to the caller's device and the solution
+    comes back from it."""
+    import difflib
+    import inspect
+
+    from visma_tpu.ba import from_vio as J
+    from visma_tpu_torch.ba import from_vio as T
+
+    for name in ("select_keyframes", "_camera_poses", "_triangulate"):
+        assert inspect.getsource(getattr(T, name)) \
+            == inspect.getsource(getattr(J, name)), name
+
+    def changed(name):
+        diff = difflib.unified_diff(
+            inspect.getsource(getattr(J, name)).splitlines(),
+            inspect.getsource(getattr(T, name)).splitlines(),
+            lineterm="", n=0)
+        return [ln[0] + ln[1:].strip() for ln in diff
+                if ln[:1] in "+-" and not ln.startswith(("+++", "---"))]
+
+    assert changed("ba_problem_from_vio") == [
+        "-max_landmarks: int = 512,",
+        "+max_landmarks: int = 512, device=None,",
+        "-R_bc/p_bc: camera-IMU extrinsics (identity by default).",
+        "+R_bc/p_bc: camera-IMU extrinsics (identity by default). device: "
+        "where",
+        "+the problem lands (None means the CUDA card).",
+        "-prob = make_problem(Rc, pc, X, obs, mask, *intr)",
+        "+prob = make_problem(Rc, pc, X, obs, mask, *intr, device=device)"]
+    assert changed("refine_trajectory") == [
+        "-Rc = np.asarray(solved.R, np.float64)",
+        "-pc = np.asarray(solved.p, np.float64)",
+        "+Rc = solved.R.cpu().numpy().astype(np.float64)",
+        "+pc = solved.p.cpu().numpy().astype(np.float64)"]

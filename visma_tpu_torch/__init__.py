@@ -1,8 +1,9 @@
 """visma_tpu_torch: visma_tpu in PyTorch, with hand-written CUDA kernels for
 Hopper. So far the VIO main path (with in-state SLAM landmarks), the
 semantic mapping path, the sequence-ingest path (raw frames -> undistort ->
-VIO, and its CLIs) and the evaluation path (align/, eval/, the evaluate and
-annotate tools).
+VIO, and its CLIs), the evaluation path (align/, eval/, the evaluate and
+annotate tools) and the trajectory-refinement path (ba/, Msckf.run_batched,
+run_vio --ba dense).
 
 A port of the JAX package `visma_tpu`, which stays the reference. It
 imports torch and never jax, and nothing of `visma_tpu`: what it needs of
@@ -10,15 +11,20 @@ the reference's numpy-only modules (`proto`, `io`, `align.registration`,
 `eval.sampling`, `eval.assembly`, `utils.term`) it keeps as its own copies.
 The layout mirrors the reference:
 
-  geom/      rodrigues, hat, vee, invrodrigues; SO3 / SE3 (lie.py)
+  geom/      rodrigues, hat, vee, invrodrigues and their analytic
+             Jacobians, project_so3; SO3 / SE3 (lie.py)
   utils/     health-gate utilities, the device rule (resolve_device),
-             full_f32 (no TF32), Timer / device_trace, configure_platform,
-             TermColor
+             full_f32 (no TF32), with_blocks, Timer / device_trace,
+             configure_platform, TermColor
+  ba/        bundle adjustment: the problem, Gauss-Newton with the Schur
+             complement, the pose graph, the VIO -> BA loop (from_vio,
+             numpy)
   proto/     vlslam dataclasses and wire codec (numpy)
   io/        sequence loader, glob, JSON and binary maps, synthetic scenes,
              procedural meshes, OBJ/PLY (numpy)
   filter/    MSCKF: config, state, IMU propagation, triangulation, update,
-             in-state SLAM landmarks (slam.py); feed.pack_frames (numpy)
+             in-state SLAM landmarks (slam.py), Msckf.run and run_batched
+             (B streams, one vmapped step a frame); feed.pack_frames (numpy)
   frontend/  pyramid, corner detection and the per-cell pick (kernel
              csrc/corner_score.cu),
              fused pyramidal LK (kernel csrc/lk_level.cu), the windowed

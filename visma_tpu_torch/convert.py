@@ -13,8 +13,10 @@ names), and `tracks_from_reference` / `tracks_to_numpy` a mapper's object
 tracks (poses, ages, scores). For the ingest path,
 `undistorter_from_reference` / `undistorter_to_numpy` carry an
 `Undistorter`'s camera model, sizes, output `K` and remap table, so that
-one table can go through both packages' remaps. Neither direction imports jax: a reference
-array crosses as `numpy.asarray` of it.
+one table can go through both packages' remaps. For bundle adjustment,
+`ba_problem_from_reference` / `ba_problem_to_numpy` carry a `BaProblem`
+(poses, landmarks, observations, mask, intrinsics). Neither direction
+imports jax: a reference array crosses as `numpy.asarray` of it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from visma_tpu_torch.ba.problem import BaProblem
 from visma_tpu_torch.filter.state import FilterState, TrackTable
 from visma_tpu_torch.frontend.tracker import TrackerState
 from visma_tpu_torch.image.undistort import (AtanModel, RadTanModel,
@@ -32,6 +35,7 @@ from visma_tpu_torch.pipeline import PipelineState
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.raster import MultiMeshRenderer
 from visma_tpu_torch.semantic.mapper import ObjectTrack
+from visma_tpu_torch.utils.misc import resolve_device
 
 _NESTED = {"tracks": TrackTable, "tracker": TrackerState,
            "filter": FilterState}
@@ -153,6 +157,24 @@ def undistorter_to_numpy(und: Undistorter) -> dict:
             "K": np.array(und.K), "remap": und.remap.cpu().numpy()}
 
 
+def ba_problem_from_reference(prob: Any, device=None) -> BaProblem:
+    """The port's BaProblem from a reference one (or a dict with `R`, `p`,
+    `X`, `obs`, `mask`, `intr`), every field with its own dtype, on
+    `device` (None means the CUDA card, as for `make_problem`)."""
+    dev = resolve_device(device)
+    return BaProblem(**{f.name: torch.as_tensor(np.array(_field(prob, f.name)),
+                                                device=dev)
+                        for f in dataclasses.fields(BaProblem)})
+
+
+def ba_problem_to_numpy(prob: BaProblem) -> dict:
+    """A port BaProblem as a dict of numpy arrays with the reference's
+    field names, from which the reference's can be rebuilt."""
+    return {f.name: getattr(prob, f.name).cpu().numpy()
+            for f in dataclasses.fields(BaProblem)}
+
+
 __all__ = ["from_reference", "to_numpy", "renderer_from_reference",
            "renderer_to_numpy", "tracks_from_reference", "tracks_to_numpy",
-           "undistorter_from_reference", "undistorter_to_numpy"]
+           "undistorter_from_reference", "undistorter_to_numpy",
+           "ba_problem_from_reference", "ba_problem_to_numpy"]

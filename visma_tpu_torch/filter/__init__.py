@@ -4,7 +4,9 @@ package docstring for the feature lifecycle), with in-state SLAM landmarks
 Dataset + IMU stream for `Msckf.run`."""
 
 from visma_tpu_torch.filter.config import FilterConfig
-from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
+from visma_tpu_torch.filter.state import (FilterState, TrackTable, init_state,
+                                          stack_states)
 from visma_tpu_torch.filter.msckf import Msckf
 
-__all__ = ["FilterConfig", "FilterState", "TrackTable", "init_state", "Msckf"]
+__all__ = ["FilterConfig", "FilterState", "TrackTable", "init_state",
+           "stack_states", "Msckf"]

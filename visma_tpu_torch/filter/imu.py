@@ -6,6 +6,11 @@ per-sample quantity like the reference (imu.py:79-161) but replaces its two
 S samples (S = 8 on the bench): the attitude prefix product and the
 (Phi, Q) composition. The fold associates left to right, the reference's
 scan as a tree, so the two agree to float32 association order only.
+
+Transition and noise matrices are built out of place (`with_blocks`,
+`diag_embed`), never by an indexed store into a fresh buffer, so that
+`torch.func.vmap` can batch every function here over streams
+(`Msckf.run_batched`).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.geom.rotations import hat, rodrigues
+from visma_tpu_torch.utils.misc import with_blocks
 
 
 @functools.lru_cache(maxsize=8)
@@ -33,6 +39,28 @@ def _eye(n: int, device) -> torch.Tensor:
     return torch.eye(n, dtype=torch.float32, device=device)
 
 
+def _imu_transition(R, Ra, dt, D: int) -> torch.Tensor:
+    """The (..., D, D) error-state transition of one IMU sample: identity
+    but for the blocks of dp/dv, dv/dtheta, dv/dba and dtheta/dbg. R
+    (..., 3, 3) the attitude before the sample, Ra (..., 3) the rotated
+    specific force, dt broadcastable to (..., 1, 1)."""
+    I3 = _eye(3, R.device)
+    Rdt = R * dt
+    return with_blocks(_eye(D, R.device), [
+        (3, 6, I3 * dt), (6, 0, -hat(Ra) * dt), (6, 12, -Rdt), (0, 9, -Rdt)])
+
+
+def _imu_noise(cfg: FilterConfig, dt, D: int) -> torch.Tensor:
+    """The (..., D) diagonal of one sample's process noise for dt (..., 1):
+    gyro, accel and the two bias walks on their 3-blocks, 0 elsewhere."""
+    z = torch.zeros_like(dt)
+    three = dt.shape[:-1] + (3,)
+    q = [cfg.gyro_noise ** 2 * dt, z, cfg.accel_noise ** 2 * dt,
+         cfg.gyro_bias_walk ** 2 * dt, cfg.accel_bias_walk ** 2 * dt]
+    return torch.cat([x.expand(three) for x in q]
+                     + [z.expand(dt.shape[:-1] + (D - 15,))], dim=-1)
+
+
 def _step(cfg: FilterConfig, state: FilterState, gyro, accel, dt):
     """One IMU sample. dt may be 0 (masked sample), then it is a no-op."""
     dev = state.P.device
@@ -48,17 +76,8 @@ def _step(cfg: FilterConfig, state: FilterState, gyro, accel, dt):
     p_new = state.p + state.v * dt + 0.5 * a_w * dt * dt
 
     D = cfg.dim
-    F = _eye(D, dev)
-    F[3:6, 6:9] = _eye(3, dev) * dt
-    F[6:9, 0:3] = -hat(Ra) * dt
-    F[6:9, 12:15] = -R * dt
-    F[0:3, 9:12] = -R * dt
-
-    Q = torch.zeros((D, D), dtype=torch.float32, device=dev)
-    Q[0:3, 0:3] = _eye(3, dev) * cfg.gyro_noise ** 2 * dt
-    Q[6:9, 6:9] = _eye(3, dev) * cfg.accel_noise ** 2 * dt
-    Q[9:12, 9:12] = _eye(3, dev) * cfg.gyro_bias_walk ** 2 * dt
-    Q[12:15, 12:15] = _eye(3, dev) * cfg.accel_bias_walk ** 2 * dt
+    F = _imu_transition(R, Ra, dt, D)
+    Q = torch.diag_embed(_imu_noise(cfg, dt.reshape(1), D))
 
     P_new = F @ state.P @ F.T + Q
     P_new = 0.5 * (P_new + P_new.T)
@@ -73,11 +92,12 @@ def propagate_cv(cfg: FilterConfig, state: FilterState,
     dev = state.P.device
     D = cfg.dim
     p_new = state.p + state.v * dt
-    F = _eye(D, dev)
-    F[3:6, 6:9] = _eye(3, dev) * dt
-    Q = torch.zeros((D, D), dtype=torch.float32, device=dev)
-    Q[0:3, 0:3] = _eye(3, dev) * cfg.cv_rot_noise ** 2 * dt
-    Q[6:9, 6:9] = _eye(3, dev) * cfg.cv_vel_noise ** 2 * dt
+    F = with_blocks(_eye(D, dev), [(3, 6, _eye(3, dev) * dt)])
+    z = torch.zeros_like(dt).expand(3)
+    Q = torch.diag_embed(torch.cat([
+        (cfg.cv_rot_noise ** 2 * dt).expand(3), z,
+        (cfg.cv_vel_noise ** 2 * dt).expand(3),
+        torch.zeros_like(dt).expand(D - 9)]))
     P_new = F @ state.P @ F.T + Q
     P_new = 0.5 * (P_new + P_new.T)
     return state.replace(p=p_new, P=P_new, t=state.t + dt)
@@ -113,20 +133,8 @@ def propagate(cfg: FilterConfig, state: FilterState, gyro: torch.Tensor,
     t = state.t + torch.sum(dts)
 
     # batched error-state transitions of the 15-dim IMU block
-    I3 = _eye(3, dev)
-    F = _eye(15, dev).repeat(S, 1, 1)
-    Rdt = R_pre * dt[..., None]
-    F[:, 3:6, 6:9] = I3 * dt[..., None]
-    F[:, 6:9, 0:3] = -hat(Ra) * dt[..., None]
-    F[:, 6:9, 12:15] = -Rdt
-    F[:, 0:3, 9:12] = -Rdt
-
-    Qd = torch.zeros((S, 15), dtype=torch.float32, device=dev)
-    Qd[:, 0:3] = cfg.gyro_noise ** 2 * dt
-    Qd[:, 6:9] = cfg.accel_noise ** 2 * dt
-    Qd[:, 9:12] = cfg.gyro_bias_walk ** 2 * dt
-    Qd[:, 12:15] = cfg.accel_bias_walk ** 2 * dt
-    Qk = torch.diag_embed(Qd)                             # (S,15,15)
+    F = _imu_transition(R_pre, Ra, dt[..., None], 15)     # (S,15,15)
+    Qk = torch.diag_embed(_imu_noise(cfg, dt, 15))        # (S,15,15)
 
     # (Phi_b, Q_b) o (Phi_a, Q_a) = (Phi_b Phi_a, Phi_b Q_a Phi_b^T + Q_b)
     Phi, Q15 = F[0], Qk[0]

@@ -2,8 +2,13 @@
 
 `_frame_step` is the per-frame step (propagate -> clone -> ingest tracks ->
 update); `Msckf.run` runs it over a packed sequence in a Python loop, the
-counterpart of the reference's `lax.scan`. Nothing in a step reads a value
-back to the host, so a run on the GPU queues frames without waiting.
+counterpart of the reference's `lax.scan`, and `Msckf.run_batched` runs the
+same step under `torch.func.vmap` over B streams, the reference's `vmap`
+inside its scan. Nothing in a step reads a value back to the host, so a
+run on the GPU queues frames without waiting; and no step writes into a
+freshly made buffer by index (blocks are placed with `with_blocks`,
+`torch.cat`, `torch.where` and out-of-place `index_put`), which vmap would
+refuse.
 
 Parity notes (each pinned in tests/test_torch_filter.py):
   * `jnp.argmax` takes the first maximum (msckf.py:49,153): bool masks are
@@ -15,6 +20,7 @@ Parity notes (each pinned in tests/test_torch_filter.py):
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -28,7 +34,7 @@ from visma_tpu_torch.filter.update import msckf_update
 from visma_tpu_torch.geom.rotations import hat, rodrigues
 from visma_tpu_torch.proto import FeatureStatus
 from visma_tpu_torch.utils.misc import (DivergenceError, finite_tree,
-                                        resolve_device)
+                                        resolve_device, with_blocks)
 
 _EMPTY = int(FeatureStatus.EMPTY)
 _INITIALIZING = int(FeatureStatus.INITIALIZING)
@@ -120,17 +126,17 @@ def _augment(cfg: FilterConfig, state: FilterState,
     if cfg.has_extrinsics or cfg.estimate_extrinsics or cfg.estimate_td:
         ra = 15 + 6 * (M - 1)
         rp = ra + 3
-        J = torch.eye(D, dtype=torch.float32, device=dev)
-        J[rp:rp + 3, ra:ra + 3] = -hat(state.R @ p_bc)
+        blocks = [(rp, ra, -hat(state.R @ p_bc))]
         if cfg.estimate_extrinsics:
             c = cfg.ext_idx
-            J[ra:ra + 3, c:c + 3] = cam_R
-            J[rp:rp + 3, c + 3:c + 6] = state.R
+            blocks += [(ra, c, cam_R), (rp, c + 3, state.R)]
         if cfg.estimate_td:
             c = cfg.td_idx
-            J[ra:ra + 3, c] = state.R @ omega
-            J[rp:rp + 3, c] = state.v + state.R @ torch.linalg.cross(omega,
-                                                                     p_bc)
+            blocks += [(ra, c, (state.R @ omega)[:, None]),
+                       (rp, c, (state.v + state.R @ torch.linalg.cross(
+                           omega, p_bc))[:, None])]
+        J = with_blocks(torch.eye(D, dtype=torch.float32, device=dev),
+                        blocks)
         P = J @ P @ J.T
     P = 0.5 * (P + P.T)
     return state.replace(win_R=win_R, win_p=win_p, win_valid=win_valid, P=P)
@@ -146,21 +152,19 @@ def _ingest(cfg: FilterConfig, tracks: TrackTable, ids, xp, valid):
     dev = ids.device
     i32 = torch.int32
 
-    obs = torch.cat([tracks.obs[:, 1:], torch.zeros((K, 1, 2), device=dev)],
-                    dim=1)
-    mask = torch.cat([tracks.mask[:, 1:],
-                      torch.zeros((K, 1), dtype=torch.bool, device=dev)],
-                     dim=1)
-
     slot_live = tracks.ids >= 0
     eq = (tracks.ids[:, None] == ids[None, :]) & valid[None, :] \
         & slot_live[:, None]
     has_match = torch.any(eq, dim=1)
     match_idx = torch.argmax(eq.to(i32), dim=1)
     matched_xp = xp[match_idx]
-    obs[:, M - 1] = torch.where(has_match[:, None], matched_xp,
-                                torch.zeros_like(matched_xp))
-    mask[:, M - 1] = has_match
+    # the window rolls left; the newest column takes this frame's matches
+    obs = torch.cat([tracks.obs[:, 1:],
+                     torch.where(has_match[:, None], matched_xp,
+                                 torch.zeros_like(matched_xp))[:, None]],
+                    dim=1)
+    mask = torch.cat([tracks.mask[:, 1:], has_match[:, None]], dim=1)
+    newest = torch.arange(M, device=dev) == M - 1          # (M,)
 
     # new features fill empty slots by rank pairing
     known = torch.any(eq, dim=0)
@@ -176,12 +180,10 @@ def _ingest(cfg: FilterConfig, tracks: TrackTable, ids, xp, valid):
     src = feat_for_rank[torch.clamp(empty_rank, 0, F - 1).long()]
 
     ids_new = torch.where(take, ids[src], tracks.ids)
-    fresh_obs = torch.zeros_like(obs)
-    fresh_obs[:, M - 1] = xp[src]
+    fresh_obs = torch.where(newest[:, None], xp[src][:, None],
+                            torch.zeros((), device=dev))
     obs = torch.where(take[:, None, None], fresh_obs, obs)
-    fresh_mask = torch.zeros_like(mask)
-    fresh_mask[:, M - 1] = True
-    mask = torch.where(take[:, None], fresh_mask, mask)
+    mask = torch.where(take[:, None], newest, mask)
     xw = torch.where(take[:, None], torch.zeros_like(tracks.xw), tracks.xw)
 
     nobs = torch.sum(mask, dim=1, dtype=i32)
@@ -251,6 +253,27 @@ class Msckf:
             outs.append(_frame_outputs(self.cfg, state))
         return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
+    def run_batched(self, states: FilterState,
+                    frames: Dict[str, torch.Tensor]):
+        """Throughput/serving mode: B independent streams (multi-camera
+        rigs, fleet reprocessing), one frame step vmapped over all B
+        streams per frame, so the per-stream linear algebra runs batched
+        on the device.
+
+        states: a FilterState whose tensors carry a leading axis B
+        (`stack_states` over `init`); frames: {key: (B, N, ...)}. Returns
+        (final states (B, ...), {R (B,N,3,3), p (B,N,3)}). Works with SLAM
+        landmarks too: the vmap covers their hooks."""
+        step = torch.func.vmap(functools.partial(_frame_step, self.cfg))
+        N = next(iter(frames.values())).shape[1]
+        Rs, ps = [], []
+        for i in range(N):
+            states = step(states, {k: v[:, i] for k, v in frames.items()})
+            Rs.append(states.R)
+            ps.append(states.p)
+        return states, {"R": torch.stack(Rs, dim=1),
+                        "p": torch.stack(ps, dim=1)}
+
 
 def _frame_step(cfg: FilterConfig, state: FilterState,
                 frame: Dict[str, torch.Tensor]) -> FilterState:
@@ -291,8 +314,7 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
     # reference, msckf.py:357-417, for the lifecycle rules)
     M = cfg.window
     old = state.tracks
-    xw = old.xw.clone()
-    xw[sel] = torch.where(used[:, None], X, old.xw[sel])
+    xw = old.xw.index_put((sel,), torch.where(used[:, None], X, old.xw[sel]))
     sel_mask_now = old.mask[sel]
     still_seen = sel_mask_now[:, M - 1]
     keep = used & still_seen
@@ -314,8 +336,7 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
         keep = keep & ~prom_sel
         drop = drop | prom_sel
 
-    newest_only = torch.zeros_like(sel_mask_now)
-    newest_only[:, M - 1] = True
+    newest_only = torch.arange(M, device=sel.device) == M - 1
     new_sel_mask = torch.where(
         keep[:, None], sel_mask_now & newest_only,
         torch.where((drop | rejected)[:, None],
@@ -324,15 +345,13 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
     def c(v):
         return torch.full_like(sel, v, dtype=i32)
 
-    status = old.status.clone()
-    status[sel] = torch.where(
+    status = old.status.index_put((sel,), torch.where(
         prom_sel, c(_INSTATE),
         torch.where(drop, c(_GOODDROP),
                     torch.where(rejected, c(_REJECT),
                                 torch.where(keep, c(_KEEP),
-                                            old.status[sel]))))
-    mask = old.mask.clone()
-    mask[sel] = new_sel_mask
+                                            old.status[sel])))))
+    mask = old.mask.index_put((sel,), new_sel_mask)
     tracks = TrackTable(ids=old.ids, status=status, obs=old.obs, mask=mask,
                         xw=xw)
     return state.replace(tracks=tracks)

@@ -27,10 +27,11 @@ import torch
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.filter.triangulate import _safe_z, project
-from visma_tpu_torch.filter.update import (_cholesky, apply_correction,
+from visma_tpu_torch.filter.update import (apply_correction,
                                            feature_jacobians,
                                            zero_landmark_gain)
 from visma_tpu_torch.geom.rotations import hat
+from visma_tpu_torch.utils.misc import cholesky_or_nan
 
 
 def in_state(lm_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -116,7 +117,7 @@ def slam_update(cfg: FilterConfig, state: FilterState, ids, xp,
 
     S = Hbig @ P @ Hbig.T \
         + cfg.pixel_noise ** 2 * torch.eye(2 * L, dtype=P.dtype, device=dev)
-    K = torch.cholesky_solve((P @ Hbig.T).T, _cholesky(0.5 * (S + S.T))).T
+    K = torch.cholesky_solve((P @ Hbig.T).T, cholesky_or_nan(0.5 * (S + S.T))).T
     if cfg.schmidt:
         # consider states: zero gain on the whole landmark block; the
         # Joseph form below stays a valid covariance update for any gain
@@ -142,7 +143,7 @@ def slam_update(cfg: FilterConfig, state: FilterState, ids, xp,
                          state.lm_ids)
     # decorrelate freed slots: zero their covariance rows/columns
     keep_row = torch.cat([torch.ones(s0, dtype=torch.bool, device=dev),
-                          torch.repeat_interleave(~drop, 3)])
+                          (~drop)[:, None].expand(L, 3).reshape(-1)])
     P2 = torch.where(keep_row[:, None] & keep_row[None, :], state.P,
                      torch.zeros((), dtype=P.dtype, device=dev))
     return state.replace(lm_ids=lm_ids, lm_missed=missed, P=P2)

@@ -2,13 +2,17 @@
 
 Same fields, shapes and dtypes as the reference's pytrees, held as frozen
 dataclasses of tensors; `replace` returns a new state, so a step never
-mutates its input. See the reference module for the error-state layout.
+mutates its input. Both dataclasses are registered as pytree nodes, so
+`torch.func.vmap` maps over a state whose tensors carry a leading stream
+axis (`stack_states`, `Msckf.run_batched`). See the reference module for
+the error-state layout.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace as _replace
+from dataclasses import dataclass, fields, replace as _replace
 
 import torch
+from torch.utils import _pytree as pytree
 
 from visma_tpu_torch.proto import FeatureStatus
 from visma_tpu_torch.filter.config import FilterConfig
@@ -67,6 +71,24 @@ class FilterState:
 
     def replace(self, **kw) -> "FilterState":
         return _replace(self, **kw)
+
+
+def _register_pytree(cls):
+    names = [f.name for f in fields(cls)]
+    pytree.register_pytree_node(
+        cls, lambda obj: ([getattr(obj, n) for n in names], None),
+        lambda children, _: cls(*children),
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+
+
+_register_pytree(TrackTable)
+_register_pytree(FilterState)
+
+
+def stack_states(states) -> FilterState:
+    """B states -> one state whose every tensor has a leading axis B (the
+    reference stacks with `jax.tree.map` over its pytrees)."""
+    return pytree.tree_map(lambda *xs: torch.stack(xs), *states)
 
 
 def _vec(x, n: int, device) -> torch.Tensor:

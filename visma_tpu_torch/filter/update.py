@@ -20,22 +20,15 @@ from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.filter.triangulate import _safe_z, project, triangulate
 from visma_tpu_torch.geom.rotations import hat, rodrigues
-
-
-def _cholesky(S: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN where the factorization fails."""
-    L, info = torch.linalg.cholesky_ex(S)
-    bad = (info != 0)[..., None, None]
-    return torch.where(bad, torch.full_like(L, float("nan")), L)
+from visma_tpu_torch.utils.misc import cholesky_or_nan
 
 
 @functools.lru_cache(maxsize=8)
 def _clone_placement(M: int, D: int, device: torch.device) -> torch.Tensor:
-    """Constant (M, 6, D) one-hot: E[m, j, 15 + 6m + j] = 1."""
-    E = torch.zeros((M, 6, D), dtype=torch.float32)
-    for m in range(M):
-        E[m, torch.arange(6), 15 + 6 * m + torch.arange(6)] = 1.0
-    return E.to(device)
+    """Constant (M, 6, D) one-hot: E[m, j, 15 + 6m + j] = 1, the clone rows
+    of the identity."""
+    return torch.eye(D, dtype=torch.float32,
+                     device=device)[15:15 + 6 * M].reshape(M, 6, D)
 
 
 def feature_jacobians(cfg: FilterConfig, X, obs, mask, win_R, win_p):
@@ -87,8 +80,7 @@ def nullspace_project(r, Hx, Hf):
         x = torch.where(rows >= k, A[..., k], torch.zeros_like(A[..., k]))
         nx = torch.linalg.norm(x, dim=-1)
         sign = torch.where(x[..., k] >= 0, 1.0, -1.0)
-        v = x.clone()
-        v[..., k] = v[..., k] + sign * nx
+        v = torch.where(rows == k, x + (sign * nx)[..., None], x)
         vtv = torch.sum(v * v, dim=-1)
         beta = torch.where(vtv > 1e-20, 2.0 / torch.clamp(vtv, min=1e-20),
                            torch.zeros_like(vtv))[..., None, None]
@@ -106,7 +98,7 @@ def chi2_gate(cfg: FilterConfig, r_proj, H_proj, P, dof_scale: float = 8.0):
     S = H_proj @ P @ H_proj.transpose(-1, -2)
     S = S + cfg.pixel_noise ** 2 * torch.eye(n, dtype=S.dtype,
                                              device=S.device)
-    sol = torch.cholesky_solve(r_proj[..., None], _cholesky(S))[..., 0]
+    sol = torch.cholesky_solve(r_proj[..., None], cholesky_or_nan(S))[..., 0]
     m2 = torch.sum(r_proj * sol, dim=-1)
     return m2 < dof_scale * n
 
@@ -149,7 +141,7 @@ def msckf_update(cfg: FilterConfig, state: FilterState,
     P = state.P
     eye = torch.eye(D, dtype=P.dtype, device=P.device)
     S = Rc @ P @ Rc.T + cfg.pixel_noise ** 2 * eye
-    L = _cholesky(0.5 * (S + S.T))
+    L = cholesky_or_nan(0.5 * (S + S.T))
     PHt = P @ Rc.T
     K = torch.cholesky_solve(PHt.T, L).T
     if cfg.num_slam and cfg.schmidt:

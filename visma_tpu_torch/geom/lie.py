@@ -39,6 +39,11 @@ class SO3:
     def from_matrix(cls, R: torch.Tensor) -> "SO3":
         return cls(R)
 
+    @classmethod
+    def fit(cls, R_approx: torch.Tensor) -> "SO3":
+        """Project approximate rotation(s) onto SO(3) (lie.py:52)."""
+        return cls(rot.project_so3(R_approx))
+
     def __matmul__(self, other):
         if isinstance(other, SO3):
             return SO3(self.R @ other.R)
@@ -87,6 +92,11 @@ class SE3:
         return cls(G[..., :3, :3], G[..., :3, 3])
 
     @classmethod
+    def from_Rt(cls, R, t: torch.Tensor) -> "SE3":
+        """From a rotation (an SO3 or a (...,3,3) tensor) and t (...,3)."""
+        return cls(R.R if isinstance(R, SO3) else R, t)
+
+    @classmethod
     def exp(cls, xi: torch.Tensor) -> "SE3":
         """SE(3) exponential. xi = (..., 6) as [rho, w] (trans, rot)."""
         rho, w = xi[..., :3], xi[..., 3:]
@@ -112,6 +122,10 @@ class SE3:
 
     def so3(self) -> SO3:
         return SO3(self.R)
+
+    @property
+    def translation(self) -> torch.Tensor:
+        return self.t
 
     def matrix3x4(self) -> torch.Tensor:
         return torch.cat([self.R, self.t[..., :, None]], dim=-1)

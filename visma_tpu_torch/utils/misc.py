@@ -3,6 +3,7 @@ port's device rule."""
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -32,6 +33,42 @@ def full_f32():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def with_blocks(base: torch.Tensor, blocks) -> torch.Tensor:
+    """`base` (..., R, C) with each (r0, c0, block (..., h, w)) written over
+    rows [r0, r0+h) and columns [c0, c0+w), in order, out of place: a
+    `torch.where` over the block's footprint, so a block with batch
+    dimensions (or batched under `torch.func.vmap`) gives a batched result
+    where an indexed store into `base` would be refused."""
+    R, C = base.shape[-2:]
+    out = base
+    for r0, c0, blk in blocks:
+        h, w = blk.shape[-2:]
+        out = torch.where(_footprint(R, C, r0, c0, h, w, base.device),
+                          torch.nn.functional.pad(
+                              blk, (c0, C - c0 - w, r0, R - r0 - h)), out)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _footprint(R: int, C: int, r0: int, c0: int, h: int, w: int,
+               device: torch.device) -> torch.Tensor:
+    """Constant (R, C) bool mask of rows [r0, r0+h) x columns [c0, c0+w),
+    made once per shape and device."""
+    rows = torch.arange(R, device=device)
+    cols = torch.arange(C, device=device)
+    return (((rows >= r0) & (rows < r0 + h))[:, None]
+            & ((cols >= c0) & (cols < c0 + w))[None, :])
+
+
+def cholesky_or_nan(S: torch.Tensor, upper: bool = False) -> torch.Tensor:
+    """Cholesky factor of S (lower, or upper as `cho_factor` gives it), NaN
+    where the factorisation fails, which is what the reference's factor
+    returns; `cholesky_ex` reports the failure without a host sync."""
+    L, info = torch.linalg.cholesky_ex(S, upper=upper)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
 
 
 def as_f32(x, device) -> torch.Tensor:
