@@ -58,11 +58,30 @@ card at the shapes the path gives it:
             ba_problem_from_vio + ba_solve + refine_trajectory (ATE <
             2.5 x the filter's + 5 mm, tests/test_ba_from_vio.py:150);
             `run_vio --synthetic 48 --no-imu --ba dense` (similarity-aligned
-            ATE below the filter's, both datasets loadable; --ba sharded
-            refused); the pose-graph loop closure of tests/test_ba.py
-            (< 2 cm, < a quarter of the drift); Msckf.run_batched over 64
-            feature feeds of 240 frames: rows 0 and 63 equal to Msckf.run
-            to 1e-5 over the first 30 frames, every row's ATE < 1 cm.
+            ATE below the filter's, both datasets loadable); the
+            pose-graph loop closure of tests/test_ba.py (< 2 cm, < a
+            quarter of the drift); Msckf.run_batched over 64 feature feeds
+            of 240 frames: rows 0 and 63 equal to Msckf.run to 1e-5 over
+            the first 30 frames, every row's ATE < 1 cm.
+  dist      the distributed layer (dist/, no hand kernel of its own, the
+            reference computes it in XLA): (c) the VIO scene through
+            TwoStagePipeline with both stages on the card (two CUDA
+            streams, chunk 32): poses equal to VioPipeline.run's bit for
+            bit, ATE 0.388 cm, K1 240 / K2 239 on the "pp" path, no more
+            host synchronisations than one stream; (a) an in-process nccl
+            group of one rank runs the multichip dryrun's twin
+            (visma_tpu_torch/dryrun.py, the reference's gates: the step
+            within 2e-4 m of ba_step, dense / pcg / submap within 2e-2 /
+            2e-2 / 1.5e-2 m and 1e-3 of ba_solve at 32 x 2048, the filter-
+            made problem, the two-stage pipeline, 128 x 8192 auto -> pcg
+            within 3e-2 m / 2e-3) and the VIO scene's own BA problem; (b)
+            the dryrun's solvers on eight gloo ranks of the one card (NCCL
+            refuses two ranks on one card), replicated outputs the same
+            bytes on every rank; (d) beside (b), the kill-and-recover drill
+            of tests/test_multihost.py at 8 x 64 on the card (recovered to
+            1e-6); (e) `run_vio --synthetic 48 --no-imu --ba sharded` within
+            2e-2 m of `--ba dense`. ms a GN step and all_reduces a GN step
+            of each solver; peak device memory.
 
 For each path that runs kernels the launch counts are set to 0 just before
 it runs and read just after, and must equal what the schedule implies. No
@@ -74,6 +93,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -151,6 +171,18 @@ BATCH_STREAMS = 64                # visma_tpu/filter/msckf.py:280-285
 BATCH_TOL_M = 1e-5                # tests/test_filter.py:211-213
 BATCH_HORIZON = 30                # the frames of that test
 BATCH_SEGMENT = 24                # frames a run_batched call
+# gloo ranks on the one card: the mesh size of the reference's dryrun
+# (__graft_entry__.py:257, MULTICHIP_r05), whose gates are set for it; on
+# 4 devices the submap's chunking lands 4.7e-2 m from the oracle in the
+# JAX package itself, past its own 1.5e-2 m gate
+DIST_RANKS = 8
+DIST_TIMEOUT_S = 300
+# the fault drill (tests/workers/fault_worker.py): poses, landmarks, GN
+# steps; recovered to 1e-6 (tests/test_multihost.py:157)
+DRILL = (8, 64, 6)
+DRILL_TOL = 1e-6
+PP_CHUNK = 32
+PP_PROFILE_FRAMES = 64            # two chunks
 # the JAX package's ba_solve on these problems (synthetic_ba_problem with
 # noise_px 0.5, pose_noise 0.02, seed 0), run on the CPU at commit 18fd3f8:
 # final total_cost, and for the dryrun's problem the solved positions.
@@ -204,6 +236,26 @@ def log(msg):
     print(msg, flush=True)
 
 
+def sync_counter(fn):
+    """Run fn() and return how many times it made the host wait for the
+    device (torch.cuda.set_sync_debug_mode), logging the first three."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught
+            if "called a synchronizing" in str(w.message)]
+    for w in hits[:3]:
+        log(f"  host synchronisation: {w.message} "
+            f"({w.filename}:{w.lineno})")
+    return len(hits)
+
+
 def cuda_ms(fn, reps=20, warmup=3):
     """Mean device time of fn() in ms over `reps` back-to-back calls."""
     import torch
@@ -219,6 +271,21 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_ms(fn):
+    """(fn(), its device time in ms between two CUDA events): one call,
+    for work that is long or that cannot be repeated cheaply."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps=20, replays=5):
@@ -1171,21 +1238,6 @@ def semantic_phase(dev, kernels):
     semantic_kernel_checks(mapper, intr, SEM_ROI, all_poses, mesh_idx,
                            kernels, n_hyp=24, plain_poses=8)
 
-    def sync_counter(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        hits = [w for w in caught
-                if "called a synchronizing" in str(w.message)]
-        for w in hits[:3]:
-            log(f"  host synchronisation: {w.message} "
-                f"({w.filename}:{w.lineno})")
-        return len(hits)
-
     counted = (rs.chunk_raster_frame, rs.chunk_raster_batched, depth_edge,
                edge_score)
     for fn in counted:
@@ -2021,10 +2073,8 @@ def ba_cli(root, device_args=()):
     """`run_vio --synthetic 48 --pixel-noise 1.0 --no-imu --ba dense
     --ba-stride 2`: the similarity-aligned ATE of the refined trajectory
     below the filter's (tests/test_ba_from_vio.py:234), both datasets
-    loadable through the port's loader with 48 packets; `--ba sharded`
-    exits non-zero naming dist/. Returns the report."""
-    import contextlib
-    import io
+    loadable through the port's loader with 48 packets. Returns the
+    report."""
     import shutil
 
     from visma_tpu_torch.cli import run_vio
@@ -2044,16 +2094,6 @@ def ba_cli(root, device_args=()):
     for d in (out, os.path.join(root, "ba")):
         n = len(VlslamDatasetLoader(d))
         check(n == BA_CLI_FRAMES, f"{d}: {n} packets")
-    err = io.StringIO()
-    code = None
-    with contextlib.redirect_stderr(err):
-        try:
-            run_vio.main(["--synthetic", "8", "--ba", "sharded",
-                          *device_args])
-        except SystemExit as e:
-            code = e.code
-    check(code not in (None, 0) and "dist/" in err.getvalue(),
-          f"run_vio --ba sharded: exit {code}, {err.getvalue()!r}")
     return report
 
 
@@ -2237,8 +2277,7 @@ def ba_phase(dev, vio_scene, card):
     with tempfile.TemporaryDirectory() as root:
         report = ba_cli(root)
     log(f"ba: (d) run_vio --synthetic {BA_CLI_FRAMES} --no-imu --ba dense "
-        f"--ba-stride 2 in {time.time() - t0:.1f} s: {report}; --ba sharded "
-        "refused")
+        f"--ba-stride 2 in {time.time() - t0:.1f} s: {report}")
 
     e = pose_graph_circle(dev)
     log(f"ba: (e) pose graph, {e['nodes']} nodes / {e['edges']} edges, "
@@ -2263,6 +2302,497 @@ def ba_phase(dev, vio_scene, card):
     log("ba: " + json.dumps({"dryrun": a, "large": b, "vio_to_ba": c,
                              "cli": report, "pose_graph": e,
                              "batched": f}))
+    return launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def device_busy_ms(prof):
+    """(union of the device intervals, sum of the device times) in ms from
+    a torch.profiler run: kernels, copies and sets, not the record_function
+    ranges the trace also projects onto the device; the union counts time
+    two streams overlap once. None where the trace holds no device event."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.key not in ("frontend", "filter")
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None, None
+    union, total, lo, hi = 0.0, 0.0, *spans[0]
+    for a, b in spans:
+        total += b - a
+        if a > hi:
+            union += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (union + hi - lo) / 1e3, total / 1e3
+
+
+def pp_two_streams(dev, scene, chunk=PP_CHUNK):
+    """(c) The VIO scene through `TwoStagePipeline` with both stages on
+    `dev` (two CUDA streams of the card), launch counts set to 0 just
+    before and read just after, against `VioPipeline.run` in the same
+    process: max |dp| = 0.0, no more host synchronisations than one
+    stream. Host ms a frame of both runs (the VIO phase warmed the path up)
+    and the device time over a profiled run of each over the first
+    PP_PROFILE_FRAMES frames. Returns (launches, numbers, the
+    single-stream outputs)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from visma_tpu_torch.dist.pipeline_pp import TwoStagePipeline
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    cfg, gwc, imu = scene["cfg"], scene["gwc"], scene["imu"]
+    seq = (scene["images"], scene["gyro"], scene["accel"], scene["dts"])
+    N = seq[0].shape[0]
+    frame0 = torch.as_tensor(scene["frames"][0], device=dev)
+    init = dict(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+    pp = TwoStagePipeline(cfg, dev, dev, levels=4, cell=32, chunk=chunk)
+    pipe = VioPipeline(cfg, levels=4, cell=32, device=dev)
+    st0 = pipe.init(frame0, **init)
+    torch.cuda.synchronize()
+    corner_score.launches = 0
+    lk_track.launches = 0
+    pp0 = pp.init(frame0, **init)
+
+    def run_pp():
+        return pp.run(*pp0, *seq)
+
+    res = {}
+
+    def timed(name, fn):
+        """fn() on the host clock between synchronisations, its host
+        synchronisations counted."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[f"{name}_syncs"] = sync_counter(lambda: res.update(out=fn()))
+        torch.cuda.synchronize()
+        res[f"{name}_host_ms_per_frame"] = (time.perf_counter() - t0) / N * 1e3
+        return res.pop("out")
+
+    _, fs, out = timed("pp", run_pp)
+    launches = {"corner_score": corner_score.launches,
+                "lk_track": lk_track.launches}
+    _, single = timed("single", lambda: pipe.run(st0, *seq))
+    p_pp, p_1 = out["p"].cpu().numpy(), single["p"].cpu().numpy()
+    res["max_dp_m"] = float(np.abs(p_pp - p_1).max())
+    res["ate_cm"] = float(np.sqrt(np.mean(np.sum(
+        (p_pp - gwc[1:, :, 3]) ** 2, axis=1)))) * 100
+    check(bool(out["healthy"].all()), "two-stage run unhealthy")
+    check(fs.p.device.type == dev.type, f"filter stage on {fs.p.device}")
+    check(res["max_dp_m"] == 0.0,
+          f"two streams != one stream: max |dp| {res['max_dp_m']}")
+    check(res["pp_syncs"] <= res["single_syncs"],
+          f"two-stage run synchronises the host {res['pp_syncs']} times, "
+          f"the single-stream run {res['single_syncs']}")
+
+    # the profiler's bookkeeping of a whole run takes minutes on the host:
+    # trace the device alone over the first PP_PROFILE_FRAMES frames
+    head = tuple(x[:PP_PROFILE_FRAMES] for x in seq)
+    for name, fn in (("single", lambda: pipe.run(st0, *head)),
+                     ("pp", lambda: pp.run(*pp0, *head))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, total = device_busy_ms(prof)
+        n = head[0].shape[0]
+        res[f"{name}_profiled_ms_per_frame"] = wall / n
+        res[f"{name}_device_busy_ms_per_frame"] = \
+            None if busy is None else busy / n
+        res[f"{name}_device_time_ms_per_frame"] = \
+            None if total is None else total / n
+    return launches, res, single
+
+
+def dist_one_rank(dev, ba_prob, card):
+    """(a) An in-process group of one rank (nccl on the card) runs the
+    dryrun twin at full size: the step, dense / pcg / submap against
+    `ba_solve`, the dryrun's own filter-made problem, the two-stage pipeline
+    on its 13-frame scene, 128 x 8192 auto -> pcg; then the VIO bench
+    scene's own BA problem (the BA phase's feed). ms a GN step of each
+    solver by CUDA events, all_reduces a GN step, peak device memory."""
+    import torch
+    import torch.distributed as tdist
+
+    from visma_tpu_torch import dryrun
+    from visma_tpu_torch.ba.problem import synthetic_ba_problem
+    from visma_tpu_torch.dist import make_mesh
+    from visma_tpu_torch.dist.sharded_ba import sharded_ba_solve
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    tdist.init_process_group(backend, init_method="tcp://127.0.0.1:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=dev)
+        check(mesh.group is not None and mesh.size == 1, "no one-rank group")
+        torch.cuda.reset_peak_memory_stats()
+        out = dryrun.dryrun_multichip(mesh, *BA_DRYRUN[:2],
+                                      large=BA_LARGE[:2],
+                                      log=lambda m: log(f"dist: (a) {m}"),
+                                      timer=timed_ms)
+        out["vio_bench"] = dryrun.vio_parity(
+            mesh, ba_prob, iters=BA_ITERS, what="VIO bench scene",
+            log=lambda m: log(f"dist: (a) {m}"))
+        big, _ = synthetic_ba_problem(*BA_LARGE[:2], 0.5, 0.02, device=dev)
+        timing = solver_timing(out)
+        mesh.counts.update(all_reduce=0, all_gather=0)
+        ms = cuda_ms(lambda: sharded_ba_solve(big, mesh, iters=BA_LARGE[2],
+                                              solver="auto", cg_iters=40),
+                     reps=1, warmup=0)
+        calls = dict(mesh.counts)
+        timing["large_auto_pcg"] = {
+            "ms_per_call": ms, "ms_per_gn_step": ms / BA_LARGE[2],
+            "all_reduce_per_gn_step": calls["all_reduce"] / BA_LARGE[2],
+            "all_gather_per_call": calls["all_gather"]}
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        out["backend"] = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    for k in ("solutions", "ms", "counts"):
+        out.pop(k)
+    out["timing"] = timing
+    log(f"dist: (a) one rank, {out['backend']}: " + "; ".join(
+        f"{k} {v['ms_per_gn_step']:.3f} ms a GN step, "
+        f"{v['all_reduce_per_gn_step']:.1f} all_reduces a GN step"
+        for k, v in timing.items())
+        + f"; peak device memory {out['peak_mib']:.1f} MiB [{card}]")
+    return out
+
+
+def solver_timing(parity):
+    """ms and collectives a GN step of each solver from
+    `dryrun.solver_parity`'s readings of its one call (the submap: 8 local
+    steps and 6 of the polish)."""
+    steps = {"dense": 10, "pcg": 10, "submap": 8 + 6}
+    return {name: {"ms_per_call": parity["ms"][name],
+                   "ms_per_gn_step": parity["ms"][name] / n,
+                   "all_reduce_per_gn_step":
+                       parity["counts"][name]["all_reduce"] / n,
+                   "all_gather_per_call":
+                       parity["counts"][name]["all_gather"]}
+            for name, n in steps.items()}
+
+
+def dist_rank_main(rank, world, addr, out_dir, device):
+    """(b) One of the gloo ranks on the card: the dryrun's solvers at 32 x
+    2048 (gated in `dryrun.solver_parity`), each call timed by CUDA events
+    and its reductions counted; writes rank{r}.npz (the replicated
+    outputs) and rank{r}.json (the numbers)."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, ROOT)
+    from visma_tpu_torch import dryrun
+    from visma_tpu_torch.dist import make_mesh
+
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    tdist.init_process_group("gloo", init_method=f"tcp://{addr}",
+                             world_size=world, rank=rank)
+    mesh = make_mesh(device=dev)
+    # a CPU rehearsal of the phase times nothing
+    out = dryrun.solver_parity(
+        mesh, *BA_DRYRUN[:2],
+        log=(lambda m: log(f"dist: (b) {m}")) if rank == 0 else
+        (lambda m: None),
+        timer=timed_ms if dev.type == "cuda" else
+        (lambda fn: (fn(), float("nan"))))
+    arrays = {}
+    for name, (sol, hist) in out.pop("solutions").items():
+        arrays.update({f"{name}_p": sol.p.cpu().numpy(),
+                       f"{name}_R": sol.R.cpu().numpy(),
+                       f"{name}_X": sol.X.cpu().numpy()})
+        if name != "submap":
+            arrays[f"{name}_hist"] = hist.cpu().numpy()
+    out["timing"] = solver_timing(out)
+    for k in ("ms", "counts"):
+        out.pop(k)
+    tdist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fp:
+        json.dump(out, fp)
+
+
+def dist_gloo_ranks(card, device="cuda:0", world=DIST_RANKS):
+    """(b) `world` gloo ranks, all on one card: the dryrun's gates on every
+    rank and the replicated outputs the same bytes on every rank. Ranks
+    that share one card measure the host round trip of each reduction (gloo
+    stages CUDA tensors through host memory) and the card's time slicing
+    between their processes, not scaling."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        addr = f"127.0.0.1:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(r), str(world), addr, out_dir, device],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(world)]
+        deadline = time.time() + DIST_TIMEOUT_S
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.time()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()  # the exact pids this phase started
+                    p.wait()
+        for line in logs[0].splitlines():
+            log(line)
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"gloo rank {r} failed:\n{logs[r]}")
+        arrays = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                  for r in range(world)]
+        nums = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fp:
+                nums.append(json.load(fp))
+    for r in range(1, world):
+        for k, v in arrays[0].items():
+            check(np.array_equal(arrays[r][k], v),
+                  f"rank {r}'s {k} differs from rank 0's")
+    res = nums[0]
+    log(f"dist: (b) {world} gloo ranks on one card: replicated outputs the "
+        f"same bytes on every rank ({len(arrays[0])} arrays); " + "; ".join(
+            f"{k} {v['ms_per_gn_step']:.3f} ms a GN step, "
+            f"{v['all_reduce_per_gn_step']:.1f} all_reduces a GN step"
+            for k, v in res["timing"].items())
+        + " (each reduction a round trip through host memory: not "
+        f"scaling) [{card}]")
+    return res
+
+
+def drill_worker(workdir, total_steps, step_sleep, device):
+    """(d) The checkpointing worker (tests/workers/fault_worker.py on the
+    port): `total_steps` sharded GN steps on a one-rank mesh, the whole
+    BaProblem saved after each and a heartbeat touched; resumes from the
+    latest snapshot."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from visma_tpu_torch.ba.problem import synthetic_ba_problem
+    from visma_tpu_torch.dist import make_mesh, sharded_ba_step
+    from visma_tpu_torch.dist.multihost import Heartbeat
+    from visma_tpu_torch.utils.checkpoint import (latest_step, load_state,
+                                                  save_state)
+
+    dev = torch.device(device)
+    ckpt = os.path.join(workdir, "ckpt")
+    hb = Heartbeat(os.path.join(workdir, "heartbeat"), interval_s=0.0)
+    prob, _ = synthetic_ba_problem(*DRILL[:2], 0.5, 0.02, device=dev)
+    start = 0
+    if os.path.exists(os.path.join(ckpt, "latest.json")):
+        start = latest_step(ckpt)
+        prob = load_state(ckpt, prob, step=start)
+        log(f"drill worker: resumed from step {start}")
+    mesh = make_mesh(device=dev)
+    for step in range(start, total_steps):
+        prob, _ = sharded_ba_step(prob, mesh, damping=1e-3)
+        save_state(ckpt, prob, step=step + 1)
+        hb.touch(step + 1)
+        time.sleep(step_sleep)
+    np.savez(os.path.join(workdir, "final.npz"), p=prob.p.cpu().numpy(),
+             X=prob.X.cpu().numpy())
+
+
+def fault_drill(device="cuda:0"):
+    """(d) tests/test_multihost.py:111-158 with the port on `device`: an
+    uninterrupted run and a victim run side by side; the victim is
+    SIGKILLed by its exact pid once it has checkpointed step 2, the
+    Watchdog respawns it, it resumes from the npz, and its final p and X
+    equal the uninterrupted run's to 1e-6. Returns the numbers."""
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from visma_tpu_torch.dist.multihost import Watchdog
+
+    def spawn(workdir, sleep_s):
+        logf = open(os.path.join(workdir, "log.txt"), "a")
+        try:
+            return subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--drill-worker",
+                 workdir, str(DRILL[2]), str(sleep_s), device],
+                cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+        finally:
+            logf.close()
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        clean, drill = os.path.join(root, "clean"), os.path.join(root, "drill")
+        os.makedirs(clean)
+        os.makedirs(drill)
+        latest = os.path.join(drill, "ckpt", "latest.json")
+        ref_proc = spawn(clean, 0.0)
+        victim = spawn(drill, 0.5)
+        try:
+            deadline = time.time() + 120
+            while time.time() < deadline and victim.poll() is None:
+                if os.path.exists(latest):
+                    with open(latest) as fp:
+                        if json.load(fp)["step"] >= 2:
+                            break
+                time.sleep(0.05)
+            check(victim.poll() is None, "the drill's victim ended early")
+            os.kill(victim.pid, signal.SIGKILL)
+            victim.wait()
+            with open(latest) as fp:
+                killed_at = json.load(fp)["step"]
+            check(not os.path.exists(os.path.join(drill, "final.npz")),
+                  "the victim finished before the kill")
+            wd = Watchdog(lambda: spawn(drill, 0.0),
+                          heartbeat_path=os.path.join(drill, "heartbeat"),
+                          stale_timeout_s=60.0, poll_s=0.2, max_restarts=2)
+            restarts = wd.run()
+            check(ref_proc.wait(timeout=120) == 0, "the clean run failed")
+        finally:
+            for p in (ref_proc, victim):
+                if p.poll() is None:
+                    p.kill()  # the exact pids this phase started
+                    p.wait()
+        with open(os.path.join(drill, "log.txt")) as fp:
+            resumed = "resumed from step" in fp.read()
+        ref = np.load(os.path.join(clean, "final.npz"))
+        got = np.load(os.path.join(drill, "final.npz"))
+        res = {"killed_after_step": killed_at, "restarts": restarts,
+               "resumed": resumed,
+               "max_dp_m": float(np.abs(got["p"] - ref["p"]).max()),
+               "max_dX_m": float(np.abs(got["X"] - ref["X"]).max()),
+               "seconds": time.time() - t0}
+    check(resumed and restarts == 0, f"the drill did not resume: {res}")
+    check(res["max_dp_m"] <= DRILL_TOL and res["max_dX_m"] <= DRILL_TOL,
+          f"the recovered run differs from the uninterrupted one: {res}")
+    return res
+
+
+def dist_cli(device_args=()):
+    """(e) `run_vio --synthetic 48 --pixel-noise 1.0 --no-imu --ba sharded
+    --ba-stride 2` (one process: the one-rank mesh) against `--ba dense`:
+    the same report keys, the similarity-aligned refined ATE within
+    BA_POSE_TOL_M. Returns both reports."""
+    from visma_tpu_torch.cli import run_vio
+
+    args = ["--synthetic", str(BA_CLI_FRAMES), "--pixel-noise", "1.0",
+            "--no-imu", "--ba-stride", "2", *device_args]
+    sharded = run_vio.main(args + ["--ba", "sharded"])
+    dense = run_vio.main(args + ["--ba", "dense"])
+    check(sharded.get("ba") == "sharded" and sharded.keys() == dense.keys(),
+          f"run_vio --ba sharded: {sharded}")
+    d = abs(sharded["ate_ba_sim_aligned_m"] - dense["ate_ba_sim_aligned_m"])
+    check(d < BA_POSE_TOL_M, f"--ba sharded vs dense: {sharded} / {dense}")
+    return sharded, dense
+
+
+def dist_phase(dev, vio_scene, card):
+    """The distributed layer on the card (no hand kernel of its own; the
+    two-stage pipeline runs K1 and K2): (c) the two-stream pipeline, then
+    (a) one nccl rank, (b) eight gloo ranks with (d) the fault drill beside
+    them, (e) `run_vio --ba sharded`. Returns the launches of (c)."""
+    from visma_tpu_torch.ba.from_vio import ba_problem_from_vio
+
+    t_phase = time.time()
+    launches, c, single = pp_two_streams(dev, vio_scene)
+    log(f"dist: (c) two-stage pipeline, both stages on {dev} (two streams, "
+        f"chunk {PP_CHUNK}), {vio_scene['images'].shape[0]} frames: max |p - "
+        f"VioPipeline.run's p| = {c['max_dp_m']}, ATE {c['ate_cm']:.3f} cm, "
+        f"launches {launches}; host ms/frame two-stage "
+        f"{c['pp_host_ms_per_frame']:.3f} against one stream "
+        f"{c['single_host_ms_per_frame']:.3f}; profiled over the first "
+        f"{PP_PROFILE_FRAMES} frames: device busy "
+        f"{c['pp_device_busy_ms_per_frame']} / "
+        f"{c['single_device_busy_ms_per_frame']} ms a frame (kernel time "
+        f"{c['pp_device_time_ms_per_frame']} / "
+        f"{c['single_device_time_ms_per_frame']}) of "
+        f"{c['pp_profiled_ms_per_frame']:.3f} / "
+        f"{c['single_profiled_ms_per_frame']:.3f}; host synchronisations "
+        f"{c['pp_syncs']} / {c['single_syncs']} [{card}]")
+
+    check(f"{c['ate_cm']:.3f}" == f"{EARLIER_ATE_CM['vio']:.3f}",
+          f"two-stage ATE {c['ate_cm']:.4f} cm != {EARLIER_ATE_CM['vio']} cm")
+    n = vio_scene["images"].shape[0]
+    check(launches == {"corner_score": n + 1, "lk_track": n},
+          f"pp launches {launches}: not one K1 a frame and one K2 a "
+          "tracked frame")
+
+    cfg = vio_scene["cfg"]
+    N = vio_scene["images"].shape[0]
+    ba_prob, _ = ba_problem_from_vio(
+        single["obs_ids"].cpu().numpy(), single["obs_xp"].cpu().numpy(),
+        single["obs_valid"].cpu().numpy(), single["R"].cpu().numpy(),
+        single["p"].cpu().numpy(), (cfg.fx, cfg.fy, cfg.cx, cfg.cy),
+        R_bc=cfg.cam_R_bc, p_bc=cfg.cam_p_bc, stride=BA_STRIDE,
+        max_landmarks=2 * cfg.max_tracks * max(N // BA_STRIDE, 1),
+        device=dev)
+    check(ba_prob is not None, "dist: the VIO scene gave BA no problem")
+    secs = {"c": time.time() - t_phase}
+    t0 = time.time()
+    a = dist_one_rank(dev, ba_prob, card)
+    secs["a"] = time.time() - t0
+    # the drill waits on process starts and files, not on the card: it runs
+    # beside (b) in a thread of its own
+    drill = {}
+
+    def run_drill():
+        try:
+            drill["res"] = fault_drill()
+        except Exception as e:  # re-raised below, in the phase's thread
+            drill["err"] = e
+
+    t0 = time.time()
+    worker = threading.Thread(target=run_drill)
+    worker.start()
+    try:
+        b = dist_gloo_ranks(card)
+    finally:
+        worker.join()
+    secs["b+d"] = time.time() - t0
+    if "err" in drill:
+        raise drill["err"]
+    d = drill["res"]
+    log(f"dist: (d) fault drill at {DRILL[0]} x {DRILL[1]}, {DRILL[2]} "
+        f"steps on {dev}: killed after step {d['killed_after_step']}, "
+        f"resumed, final p / X {d['max_dp_m']:.1e} / {d['max_dX_m']:.1e} "
+        f"from the uninterrupted run's (tol {DRILL_TOL}), "
+        f"{d['seconds']:.1f} s beside (b) [{card}]")
+    t0 = time.time()
+    sharded, dense = dist_cli()
+    secs["e"] = time.time() - t0
+    log(f"dist: (e) run_vio --ba sharded: similarity-aligned ATE "
+        f"{sharded['ate_sim_aligned_m']} -> {sharded['ate_ba_sim_aligned_m']}"
+        f" m (--ba dense {dense['ate_ba_sim_aligned_m']} m) [{card}]")
+    log("dist: " + json.dumps({
+        "pp": c, "one_rank": a, "gloo_ranks": b, "drill": d,
+        "cli": {"sharded": sharded, "dense": dense},
+        "seconds": time.time() - t_phase, "seconds_by_part": secs},
+        default=float))
+    log(f"dist: phase {time.time() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+        + f") [{card}]")
     return launches
 
 
@@ -2582,9 +3112,18 @@ def eval_phase(dev, card):
         eval_cli(root, card)
 
 
-def main():
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dist-rank"]:
+        r, world, addr, out_dir, device = argv[1:]
+        dist_rank_main(int(r), int(world), addr, out_dir, device)
+        return 0
+    if argv[:1] == ["--drill-worker"]:
+        workdir, steps, sleep_s, device = argv[1:]
+        drill_worker(workdir, int(steps), float(sleep_s), device)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -2614,7 +3153,8 @@ def main():
                "semantic": semantic_phase(dev, kernels),
                "ingest": ingest_phase(dev, kernels, vio_ate),
                "slam": slam_phase(dev, vio_scene, vio_ate, card),
-               "ba": ba_phase(dev, vio_scene, card)}
+               "ba": ba_phase(dev, vio_scene, card),
+               "pp": dist_phase(dev, vio_scene, card)}
     del vio_scene
     eval_phase(dev, card)
 

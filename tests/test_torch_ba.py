@@ -361,7 +361,9 @@ def test_run_vio_ba_dense_on_the_cpu(tmp_path, capsys):
     """`run_vio --synthetic 48 --no-imu --ba dense --ba-stride 2 --device
     cpu`: the similarity-aligned ATE of the BA trajectory below the
     filter's (tests/test_ba_from_vio.py:234), both datasets written and
-    loadable with 48 packets; `--ba sharded` refuses, naming dist/."""
+    loadable with 48 packets; `--ba sharded` is no longer refused (it runs
+    since dist/ is ported: tests/test_torch_dist.py holds it to `--ba
+    dense`)."""
     from visma_tpu_torch.cli.run_vio import main
     from visma_tpu_torch.io import VlslamDatasetLoader
 
@@ -383,6 +385,7 @@ def test_run_vio_ba_dense_on_the_cpu(tmp_path, capsys):
                                               .read_bytes())
     assert len(VlslamDatasetLoader(str(tmp_path / "ba"))) == 48
 
-    with pytest.raises(SystemExit):
-        main(["--synthetic", "8", "--ba", "sharded", "--device", "cpu"])
-    assert "dist/" in capsys.readouterr().err
+    capsys.readouterr()
+    report = main(["--synthetic", "8", "--ba", "sharded", "--device", "cpu"])
+    assert "not ported" not in capsys.readouterr().err
+    assert report["frames"] == 8

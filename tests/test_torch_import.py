@@ -3,8 +3,8 @@ package `visma_tpu` blocked, its sources name neither, its own copies of
 the numpy-only `proto`, `io`, `align.registration`, `eval.sampling`,
 `eval.assembly` and `utils.term` modules give what the reference's give,
 its copy of `ba.from_vio`'s host numpy is the reference's source apart
-from the device, and its entry points want the card unless told
-otherwise."""
+from the device, its `Heartbeat` and `Watchdog` are the reference's
+source, and its entry points want the card unless told otherwise."""
 import os
 import re
 import subprocess
@@ -52,7 +52,10 @@ def test_imports_with_jax_blocked():
         "          'align.registration', 'eval.metrics', 'eval.evaluate',\n"
         "          'eval.sampling', 'eval.assembly', 'utils.term',\n"
         "          'cli.evaluate', 'cli.annotate', 'ba', 'ba.problem',\n"
-        "          'ba.gauss_newton', 'ba.pose_graph', 'ba.from_vio'):\n"
+        "          'ba.gauss_newton', 'ba.pose_graph', 'ba.from_vio',\n"
+        "          'dist', 'dist.mesh', 'dist.sharded_ba', 'dist.pcg_ba',\n"
+        "          'dist.submap_ba', 'dist.pipeline_pp', 'dist.multihost',\n"
+        "          'utils.checkpoint', 'dryrun'):\n"
         "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"
@@ -425,3 +428,17 @@ def test_from_vio_copy_is_the_reference_source():
         "-pc = np.asarray(solved.p, np.float64)",
         "+Rc = solved.R.cpu().numpy().astype(np.float64)",
         "+pc = solved.p.cpu().numpy().astype(np.float64)"]
+
+
+def test_heartbeat_and_watchdog_are_the_reference_source():
+    """dist/multihost.py's `Heartbeat` and `Watchdog` are pure Python and
+    copied unchanged, so the reference's drills of them
+    (tests/test_multihost.py) hold for the port's too."""
+    import inspect
+
+    from visma_tpu.dist import multihost as J
+    from visma_tpu_torch.dist import multihost as T
+
+    for name in ("Heartbeat", "Watchdog"):
+        assert inspect.getsource(getattr(T, name)) \
+            == inspect.getsource(getattr(J, name)), name

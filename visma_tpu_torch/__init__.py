@@ -2,8 +2,9 @@
 Hopper. So far the VIO main path (with in-state SLAM landmarks), the
 semantic mapping path, the sequence-ingest path (raw frames -> undistort ->
 VIO, and its CLIs), the evaluation path (align/, eval/, the evaluate and
-annotate tools) and the trajectory-refinement path (ba/, Msckf.run_batched,
-run_vio --ba dense).
+annotate tools), the trajectory-refinement path (ba/, Msckf.run_batched,
+run_vio --ba dense) and the distributed layer (dist/, utils/checkpoint,
+run_vio --ba sharded, dryrun.py).
 
 A port of the JAX package `visma_tpu`, which stays the reference. It
 imports torch and never jax, and nothing of `visma_tpu`: what it needs of
@@ -14,11 +15,16 @@ The layout mirrors the reference:
   geom/      rodrigues, hat, vee, invrodrigues and their analytic
              Jacobians, project_so3; SO3 / SE3 (lie.py)
   utils/     health-gate utilities, the device rule (resolve_device),
-             full_f32 (no TF32), with_blocks, Timer / device_trace,
-             configure_platform, TermColor
+             full_f32 (no TF32), with_blocks, tree_leaves, Timer /
+             device_trace, configure_platform, TermColor, checkpoints in the
+             reference's npz layout (checkpoint.py)
   ba/        bundle adjustment: the problem, Gauss-Newton with the Schur
              complement, the pose graph, the VIO -> BA loop (from_vio,
              numpy)
+  dist/      torch.distributed: a process group as a 1-D mesh, the
+             landmark-sharded dense and matrix-free PCG solvers, submap BA,
+             the two-stage frontend/filter pipeline (two CUDA streams on one
+             card), multihost (initialize, Heartbeat, Watchdog)
   proto/     vlslam dataclasses and wire codec (numpy)
   io/        sequence loader, glob, JSON and binary maps, synthetic scenes,
              procedural meshes, OBJ/PLY (numpy)
@@ -47,6 +53,7 @@ The layout mirrors the reference:
   cli/         undistort_images, run_vio, evaluate, annotate, example_load,
                example_dump
   convert.py   state carried between the reference and the port
+  dryrun.py    the multichip dryrun's twin, the reference's gates
   _kernels.py  nvcc build and ctypes loading of csrc/*.cu
 
 A kernel wrapper takes its plain PyTorch version for a CPU tensor and

@@ -16,16 +16,14 @@ ATE after similarity alignment (align.umeyama).
 adjustment (BASELINE config 5): the problem is rebuilt from the run's own
 observations and estimates (ba/from_vio.py, keyframes every --ba-stride
 frames), solved by `ba.ba_solve` (--ba-iters GN steps) on the run's
-device, and written back over every frame. The report then adds the BA
-trajectory's ATE, over all frames and at the keyframes.
+device, and written back over every frame. --ba sharded solves it with the
+landmark-sharded `dist.sharded_ba_solve` over `dist.make_mesh()` instead
+(one rank in a single process). The report then adds the BA trajectory's
+ATE, over all frames and at the keyframes.
 
 Writes the estimated trajectory as a vlslam dataset (loadable by
 example_load), with --ba also the refined one as `dataset_ba`, and prints
 ATE vs the reference poses when available.
-
-Not ported yet, and refused with an error instead of being replaced by
-something else: `--ba sharded` (the landmark-sharded solver waits for the
-port of dist/).
 """
 from __future__ import annotations
 
@@ -65,8 +63,8 @@ def main(argv=None):
                     help="batch BA trajectory refinement after the filter "
                          "pass: rebuild the problem from the run's own "
                          "observations + estimates (ba/from_vio.py) and "
-                         "solve on one device (dense); sharded is not "
-                         "ported yet (it waits for dist/)")
+                         "solve on one device (dense) or landmark-sharded "
+                         "over the process group's mesh (sharded)")
     ap.add_argument("--ba-stride", type=int, default=4,
                     help="keyframe stride for the BA problem")
     ap.add_argument("--ba-iters", type=int, default=10)
@@ -76,10 +74,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-
-    if args.ba == "sharded":
-        ap.error("--ba sharded is not ported yet: the landmark-sharded "
-                 "solver waits for the port of dist/ (use --ba dense)")
 
     from visma_tpu_torch.utils.platform import configure_platform
 
@@ -226,10 +220,9 @@ def main(argv=None):
     report = {"frames": len(p_est), "ate_rmse_m": round(rmse(p_est), 5)}
 
     outs_ba = None
-    if args.ba == "dense":
+    if args.ba != "off":
         from visma_tpu_torch.ba.from_vio import (ba_problem_from_vio,
                                                  refine_trajectory)
-        from visma_tpu_torch.ba.gauss_newton import ba_solve
 
         if obs_keys is None:
             obs = (packed["ids"], packed["xp"], packed["valid"])
@@ -245,7 +238,16 @@ def main(argv=None):
         if prob is None:
             report["ba"] = "skipped: too few landmarks"
         else:
-            sol, _ = ba_solve(prob, iters=args.ba_iters)
+            if args.ba == "sharded":
+                from visma_tpu_torch.dist import make_mesh
+                from visma_tpu_torch.dist.sharded_ba import sharded_ba_solve
+
+                sol, _ = sharded_ba_solve(prob, make_mesh(device=device),
+                                          iters=args.ba_iters)
+            else:
+                from visma_tpu_torch.ba.gauss_newton import ba_solve
+
+                sol, _ = ba_solve(prob, iters=args.ba_iters)
             R_ba, p_ba = refine_trajectory(sol, info, R_est, p_est,
                                            cfg.cam_R_bc, cfg.cam_p_bc)
             kfi = info["kf"]

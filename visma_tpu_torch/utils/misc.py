@@ -3,6 +3,7 @@ port's device rule."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 
 import torch
@@ -76,23 +77,30 @@ def as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _float_leaves(x):
-    if isinstance(x, torch.Tensor):
-        if x.is_floating_point():
-            yield x
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _float_leaves(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _float_leaves(v)
+def tree_leaves(tree) -> list:
+    """The leaves of nested dataclasses, dicts, tuples and lists in the
+    order of `jax.tree_util.tree_flatten` on the reference's types:
+    dataclass fields in declaration order (the port's states are frozen
+    dataclasses in the reference's field order), dicts by sorted key,
+    tuples and lists in order, None with no leaf."""
+    if tree is None:
+        return []
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree)
+                for x in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def finite_tree(x) -> torch.Tensor:
     """All-finite reduction over the float tensors of a nested tuple / list /
     dict: one 0-d bool tensor on the tensors' device, computed without a
     host sync."""
-    flags = [torch.isfinite(leaf).all() for leaf in _float_leaves(x)]
+    flags = [torch.isfinite(leaf).all() for leaf in tree_leaves(x)
+             if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
     if not flags:
         return torch.tensor(True)
     return torch.stack(flags).all()
