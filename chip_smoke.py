@@ -81,7 +81,28 @@ card at the shapes the path gives it:
             of tests/test_multihost.py at 8 x 64 on the card (recovered to
             1e-6); (e) `run_vio --synthetic 48 --no-imu --ba sharded` within
             2e-2 m of `--ba dense`. ms a GN step and all_reduces a GN step
-            of each solver; peak device memory.
+            of each solver; peak device memory. The VIO step makes no host
+            synchronisation in (c), one stream or two.
+  tools     the command-line tools that compute on the card, at the bench
+            camera (500x960): (a) render_depth of the procedural chair
+            against the plain render (depthmap.bin: no coverage flip,
+            1e-6 relative; mask.bin the same bytes); (b) run_semantic
+            --synthetic 4 with tests/test_cli.py's flags and gates, and
+            at its 120x160 full-frame shapes K3, depth_edge and edge_score
+            (no occluder) against their plain versions; (c) the
+            semantic scene written to disk (gwc, the card's ground-truth
+            .edge renders, frame 0's detections, OBJ meshes) through
+            run_semantic --dataroot --models with the semantic phase's
+            settings: 4 tracks, one packet a frame, every translation error
+            < 0.15 m, poses equal to the same run in-process to 1e-6 m;
+            (d) visualize --animate on it (45 overlay PNGs; frames 0,
+            22, 44 agree with an overlay of the plain render and plain
+            depth_edge on 99.9% of the pixels; the static figure too where
+            matplotlib is installed, else reported as not met); (e) the
+            native decoder
+            builds and decodes the sequence as the Python codec does.
+            Kernels chunk_raster_frame, chunk_raster_batched, depth_edge,
+            edge_score, each part's launches held to its schedule.
 
 For each path that runs kernels the launch counts are set to 0 just before
 it runs and read just after, and must equal what the schedule implies. No
@@ -183,6 +204,18 @@ DRILL = (8, 64, 6)
 DRILL_TOL = 1e-6
 PP_CHUNK = 32
 PP_PROFILE_FRAMES = 64            # two chunks
+# host synchronisations a tracked frame of the VIO step may make (the dist
+# phase's (c) counts them over the whole scene, one stream and two)
+VIO_SYNCS_PER_FRAME = 0
+
+# the tools phase: the command-line tools on the card
+RENDER_DEPTH_T = (0.1, 0.0, 2.4)     # the chair 2.4 m ahead, in view
+SYN_FRAMES = 4                       # tests/test_cli.py:72-90's flags
+SYN_ITERS, SYN_SAMPLES = 3, 32
+TOOL_POS_GATE_M = 0.15               # tests/test_cli.py:87
+TOOL_POSE_TOL_M = 1e-6               # the tool against the mapper in-process
+OVERLAY_AGREE = 0.999                # of the pixels, tests/test_cli.py:203
+OVERLAY_FRAMES = (0, 22, 44)
 # the JAX package's ba_solve on these problems (synthetic_ba_problem with
 # noise_px 0.5, pose_noise 0.02, seed 0), run on the CPU at commit 18fd3f8:
 # final total_cost, and for the dryrun's problem the solved positions.
@@ -1209,13 +1242,10 @@ def expected_semantic_launches(n_frames_rendered, n_objects, n_stepped,
 def semantic_phase(dev, kernels):
     import torch
 
-    from visma_tpu_torch.image.edges import depth_edge
     from visma_tpu_torch.io.procedural import bench_mesh_db
     from visma_tpu_torch.io.synthetic_semantic import (BENCH_INTRINSICS,
                                                        bench_scene)
-    from visma_tpu_torch.render import raster as rs
     from visma_tpu_torch.render.camera import Intrinsics
-    from visma_tpu_torch.render.likelihood import edge_score
     from visma_tpu_torch.semantic import SemanticMapper
 
     intr = Intrinsics(**BENCH_INTRINSICS)
@@ -1238,13 +1268,9 @@ def semantic_phase(dev, kernels):
     semantic_kernel_checks(mapper, intr, SEM_ROI, all_poses, mesh_idx,
                            kernels, n_hyp=24, plain_poses=8)
 
-    counted = (rs.chunk_raster_frame, rs.chunk_raster_batched, depth_edge,
-               edge_score)
-    for fn in counted:
-        fn.launches = 0
-    res = semantic_run(mapper, intr, names, SEM_FRAMES, SEM_WINDOW, SEM_WARM,
-                       sync_counter)
-    launches = {fn.__name__: fn.launches for fn in counted}
+    res, launches = launches_of(semantic_run, mapper, intr, names,
+                                SEM_FRAMES, SEM_WINDOW, SEM_WARM,
+                                sync_counter)
     log(f"semantic: launches {launches}")
     check_semantic_gates(res, names)
     check(res["need_occ_spawn"], "the scene's footprints do not overlap")
@@ -1258,7 +1284,8 @@ def semantic_phase(dev, kernels):
         f"({1e3 / min(res['win_ms']):.1f} frames/s) over drained "
         f"{SEM_WINDOW}-frame windows; spawn frame {res['spawn_ms']:.0f} ms; "
         f"all within 0.075 m by frame {res['settle_frame']}")
-    return launches
+    res["retrieval_yaws"] = mapper.retrieval_yaws
+    return launches, res
 
 
 def inverse_atan_table(und):
@@ -2738,6 +2765,12 @@ def dist_phase(dev, vio_scene, card):
     check(launches == {"corner_score": n + 1, "lk_track": n},
           f"pp launches {launches}: not one K1 a frame and one K2 a "
           "tracked frame")
+    # the frame step reads nothing back (filter/msckf.py's body-rate
+    # gather stays on the device)
+    check(max(c["pp_syncs"], c["single_syncs"]) <= VIO_SYNCS_PER_FRAME * n,
+          f"host synchronisations {c['pp_syncs']} / {c['single_syncs']} "
+          f"over {n} tracked frames: more than {VIO_SYNCS_PER_FRAME} a "
+          "frame")
 
     cfg = vio_scene["cfg"]
     N = vio_scene["images"].shape[0]
@@ -3112,6 +3145,521 @@ def eval_phase(dev, card):
         eval_cli(root, card)
 
 
+def counted_kernels():
+    """The wrappers of the kernels the tools reach: K3, K4, K5's
+    depth_edge and the fused edge_score."""
+    from visma_tpu_torch.image.edges import depth_edge
+    from visma_tpu_torch.render import raster as rs
+    from visma_tpu_torch.render.likelihood import edge_score
+
+    return (rs.chunk_raster_frame, rs.chunk_raster_batched, depth_edge,
+            edge_score)
+
+
+def launches_of(fn, *args):
+    """(fn(*args), {kernel: launches}): the counts of the tools' kernels
+    set to 0 just before the call and read just after."""
+    counted = counted_kernels()
+    for k in counted:
+        k.launches = 0
+    out = fn(*args)
+    return out, {k.__name__: k.launches for k in counted}
+
+
+def quiet_main(main_fn, argv):
+    """(main_fn(argv), the JSON record it printed last, seconds): a tool's
+    entry point in-process, its standard output kept for the record."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = main_fn(argv)
+    secs = time.time() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return out, json.loads(lines[-1]) if lines else None, secs
+
+
+def tool_render_depth(root, dev, intr, device_args=()):
+    """(a) render_depth of the procedural chair from a written config:
+    depthmap.bin against the plain render of the same mesh and pose (no
+    coverage flip, DEPTH_REL_TOL; the background z_far), and mask.bin the
+    same bytes as the plain coverage written the same way. Returns the
+    tool's seconds."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.cli import render_depth
+    from visma_tpu_torch.io import load_mat, load_mesh, save_mat, save_obj
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+    from visma_tpu_torch.render.raster import rasterize_depth_chunked_plain
+
+    mesh = os.path.join(root, "chair.obj")
+    save_obj(mesh, *bench_mesh_db()["chair"])
+    out = os.path.join(root, "render")
+    cfg = {"image_height": intr.rows, "image_width": intr.cols,
+           "fx": intr.fx, "fy": intr.fy, "cx": intr.cx, "cy": intr.cy,
+           "z_near": intr.z_near, "z_far": intr.z_far, "mesh": mesh,
+           "translation": list(RENDER_DEPTH_T), "save": True,
+           "output_path": out, "mask": True}
+    cfg_path = os.path.join(root, "render_depth.json")
+    with open(cfg_path, "w") as fp:
+        json.dump(cfg, fp)
+    _, _, secs = quiet_main(render_depth.main, [cfg_path, *device_args])
+
+    V, F = load_mesh(mesh)
+    pose = torch.eye(3, 4, dtype=torch.float32, device=dev)
+    pose[:, 3] = torch.tensor(RENDER_DEPTH_T, dtype=torch.float32)
+    ref = rasterize_depth_chunked_plain(
+        torch.as_tensor(V, device=dev), torch.as_tensor(F, device=dev),
+        pose[None], intr)[0]
+    got = torch.as_tensor(load_mat(os.path.join(out, "depthmap.bin")),
+                          device=dev)
+    check(bool((got[~torch.isfinite(ref)] == intr.z_far).all()),
+          "render_depth: background is not z_far")
+    compare_depth(torch.where(got == intr.z_far,
+                              torch.full_like(got, float("inf")), got), ref,
+                  f"tools: (a) render_depth, {len(F)} faces at "
+                  f"{intr.rows}x{intr.cols}")
+    plain_mask = os.path.join(root, "plain_mask.bin")
+    save_mat(plain_mask, (np.isfinite(ref.cpu().numpy()) * 255)
+             .astype(np.float32))
+    with open(os.path.join(out, "mask.bin"), "rb") as a, \
+            open(plain_mask, "rb") as b:
+        check(a.read() == b.read(), "render_depth: mask.bin is not the "
+              "plain render's coverage")
+    return secs
+
+
+def tool_run_semantic_synthetic(root, device_args=()):
+    """(b) run_semantic --synthetic with tests/test_cli.py:72-90's flags
+    and gates: one track, the retrieved model `lchair`, position error
+    under 0.15 m, one packet a frame. Returns (the tool's mapper, its
+    record, seconds)."""
+    from visma_tpu_torch.cli import run_semantic
+
+    out = os.path.join(root, "synthetic_result.json")
+    mapper, rec, secs = quiet_main(run_semantic.main, [
+        "--synthetic", str(SYN_FRAMES), "--output", out,
+        "--cem-iters", str(SYN_ITERS), "--cem-samples", str(SYN_SAMPLES),
+        *device_args])
+    check(rec["tracks"] == 1 and rec["model"] == "lchair"
+          and rec["pos_err_m"] < TOOL_POS_GATE_M,
+          f"run_semantic --synthetic: {rec}")
+    with open(out) as fp:
+        packets = json.load(fp)
+    check(len(packets) == SYN_FRAMES
+          and all(len(p) == 1 for p in packets),
+          "run_semantic --synthetic: not one packet a frame")
+    return mapper, rec, secs
+
+
+def synthetic_kernel_checks(mapper):
+    """(b)'s kernels against their plain versions at the shapes the tool
+    gives them: its camera, full frames, no occluder. The evidence is the
+    retrieved mesh's edge render at the track's final pose from frame 0's
+    camera (the identity), made as the tool makes its ground truth (K3,
+    then depth_edge); the hypotheses are one CEM iteration's, the tool's
+    cem_samples draws of its first sigma about that pose, the mean first;
+    the score takes them as the CEM does (tau, the coverage radius, the
+    evidence's mass). Tolerances those of the semantic phase."""
+    import torch
+
+    from visma_tpu_torch.geom.lie import SE3
+    from visma_tpu_torch.image.edges import depth_edge, depth_edge_plain
+    from visma_tpu_torch.render import raster as rs
+    from visma_tpu_torch.render.likelihood import (edge_distance_transform,
+                                                   edge_score,
+                                                   edge_score_plain)
+    from visma_tpu_torch.semantic.cem import CEM_TAU, _sigma6
+
+    mr, intr, dev = mapper.mrenderer, mapper.intr, mapper.device
+    tr = next(iter(mapper.tracks.values()))
+    pose = torch.as_tensor(tr.pose_wm[:3, :4], dtype=torch.float32,
+                           device=dev)
+    mi = torch.tensor([mr.index(tr.model_name)], device=dev)
+    shape = f"{intr.rows}x{intr.cols}"
+    d = rs.rasterize_depth_chunked_multi(mr.Cs, pose[None], mi, intr)
+    compare_depth(d, rs.rasterize_depth_chunked_multi_plain(
+        mr.Cs, pose[None], mi, intr), f"tools: (b) K3, the evidence {shape}")
+    obs = depth_edge(d)[0]
+    e_err = float((obs - depth_edge_plain(d)[0]).abs().max())
+    log(f"tools: (b) depth_edge {shape}: max |kernel - plain| = "
+        f"{e_err:.3e} (tol {EDGE_TOL:.0e})")
+    check(e_err <= EDGE_TOL, f"(b) depth_edge disagrees: {e_err}")
+
+    S = mapper.cem_samples
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    xi = torch.randn((1, S, 6), generator=gen, device=dev) \
+        * torch.as_tensor(_sigma6(mapper.init_sigma, 1), dtype=torch.float32,
+                          device=dev)[:, None]
+    xi[:, 0] = 0.0
+    hyp = (SE3(pose[None, None, :, :3], pose[None, None, :, 3])
+           @ SE3.exp(xi)).matrix3x4().reshape(S, 3, 4)
+    h = rs.rasterize_depth_chunked_multi(mr.Cs, hyp, mi.repeat(S), intr)
+    compare_depth(h, rs.rasterize_depth_chunked_multi_plain(
+        mr.Cs, hyp, mi.repeat(S), intr),
+        f"tools: (b) K3, one CEM iteration's {S} hypotheses {shape}")
+    dt = edge_distance_transform(obs, iters=int(CEM_TAU) + 6)
+    args = (h.reshape(1, S, intr.rows, intr.cols), None, dt, obs)
+    kw = dict(tau=CEM_TAU, radius=mapper.coverage_radius,
+              obs_mass=torch.sum(obs))
+    got, ref = edge_score(*args, **kw), edge_score_plain(*args, **kw)
+    err = float((got - ref).abs().max())
+    log(f"tools: (b) edge_score (1, {S}, {shape}), full frames, no "
+        f"occluder: max |kernel - plain| = {err:.3e} (tol {SCORE_TOL:.0e}), "
+        f"scores {float(ref.min()):.4f}..{float(ref.max()):.4f}")
+    check(err <= SCORE_TOL, f"(b) edge_score disagrees: {err}")
+    check(bool(torch.isfinite(got).all()) and float(ref.std()) > 0,
+          "(b) edge_score: degenerate scores")
+
+
+def write_semantic_sequence(root, dev, intr, n_frames, m, fps=30.0):
+    """The semantic phase's scene as a VISMA directory: `dataset` (the
+    camera, each frame's gwc, and the INSTATE observations of 40 seeded
+    landmarks), one .edge file a frame holding the card's ground-truth edge
+    render (K3 a pose, one depth_edge), frame 0's detections as its .bbox
+    (the mapper spawns from them, as in the semantic phase), and the chair
+    and desk as OBJ under models/. Returns (dataroot, models dir, names,
+    T_gt, the edge frames on the card)."""
+    import numpy as np
+
+    from visma_tpu_torch.image.edges import depth_edge
+    from visma_tpu_torch.io import save_obj
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+    from visma_tpu_torch.io.synthetic_semantic import (bench_scene,
+                                                       gt_detections)
+    from visma_tpu_torch.proto import (CameraInfo, Dataset, EdgeMap, Feature,
+                                       FeatureStatus, Packet)
+    from visma_tpu_torch.render.raster import MultiMeshRenderer
+
+    db = bench_mesh_db()
+    names, T_gt, yaw_gt, gwc_at, all_poses = bench_scene(n_frames, m)
+    mr = MultiMeshRenderer(intr, device=dev)
+    mr.set_meshes(db)
+    mesh_idx = np.array([mr.index(nm) for nm in names])
+    d = mr.render_depth(all_poses,
+                        np.broadcast_to(mesh_idx, (n_frames, m)).copy())
+    edges = depth_edge(d.amin(dim=1))
+    edges_np = edges.cpu().numpy()
+
+    seq, models = os.path.join(root, "semantic"), os.path.join(root, "models")
+    os.makedirs(seq)
+    os.makedirs(models)
+    for name, (V, F) in db.items():
+        save_obj(os.path.join(models, name + ".obj"), V, F)
+    rng = np.random.default_rng(8)
+    Xw = np.column_stack([rng.uniform(-2.5, 2.5, 40), rng.uniform(-1, 1, 40),
+                          rng.uniform(2.0, 4.0, 40)])
+    packets = []
+    for i in range(n_frames):
+        stamp = frame_stamp_us(i, fps)
+        with open(os.path.join(seq, f"{stamp:d}.edge"), "wb") as fp:
+            fp.write(EdgeMap(rows=intr.rows, cols=intr.cols,
+                             data=edges_np[i].ravel()).encode())
+        g = gwc_at(i)
+        Xc = (Xw - g[:, 3]) @ g[:, :3]
+        uv = np.column_stack([intr.fx * Xc[:, 0] / Xc[:, 2] + intr.cx,
+                              intr.fy * Xc[:, 1] / Xc[:, 2] + intr.cy])
+        feats = [Feature(id=k, status=FeatureStatus.INSTATE, xp=uv[k],
+                         xw=Xw[k]) for k in range(len(Xw))
+                 if 0 <= uv[k, 0] < intr.cols and 0 <= uv[k, 1] < intr.rows]
+        packets.append(Packet(ts=float(stamp), gwc=g.reshape(-1),
+                              features=feats, wg=np.zeros(2)))
+    aabbs = {n: (np.asarray(V, np.float64).min(0),
+                 np.asarray(V, np.float64).max(0)) for n, (V, _) in db.items()}
+    with open(os.path.join(seq, f"{frame_stamp_us(0, fps):d}.bbox"),
+              "wb") as fp:
+        fp.write(gt_detections(aabbs, intr, names, yaw_gt,
+                               all_poses[0]).encode())
+    cam = CameraInfo(rows=intr.rows, cols=intr.cols,
+                     parameters=np.array([intr.fx, intr.fy, intr.cx,
+                                          intr.cy]))
+    with open(os.path.join(seq, "dataset"), "wb") as fp:
+        fp.write(Dataset(description="semantic tools sequence", camera=cam,
+                         packets=packets).encode())
+    return seq, models, names, T_gt, edges
+
+
+def semantic_cli_args(seq, models, out, device_args=()):
+    """run_semantic on the written sequence with the semantic phase's
+    settings (its retrieval_yaws has no flag: the tool keeps the mapper's
+    default)."""
+    return ["--dataroot", seq, "--models", models, "--output", out,
+            "--roi", *map(str, SEM_ROI), "--roi-spawn", "--settled", "3",
+            "24", "--async-frames", "16", "--warmup-objects",
+            str(SEM_OBJECTS), *device_args]
+
+
+def tool_run_semantic_dataroot(seq, models, m, device_args=()):
+    """(c) run_semantic --dataroot --models on the written sequence: one
+    packet a frame, m tracks. Returns (the tool's mapper, seconds)."""
+    from visma_tpu_torch.cli import run_semantic
+    from visma_tpu_torch.io import VlslamDatasetLoader
+
+    n = len(VlslamDatasetLoader(seq))
+    out = os.path.join(seq, "result.json")
+    mapper, rec, secs = quiet_main(
+        run_semantic.main, semantic_cli_args(seq, models, out, device_args))
+    check(rec["frames"] == n and rec["tracks"] == m,
+          f"run_semantic --dataroot: {rec}")
+    with open(out) as fp:
+        packets = json.load(fp)
+    check(len(packets) == n and all(len(p) == m for p in packets),
+          "run_semantic --dataroot: not one packet of every track a frame")
+    return mapper, secs
+
+
+def semantic_in_process(seq, models, tool, edges, dev):
+    """The tool's run again in-process: a SemanticMapper built as the tool
+    builds it from the same command line (its parser, its camera and mesh
+    database), warmed up as it is, stepped on the loader's poses and
+    detections but on the edge frames as the card rendered them (which
+    checks that the .edge files round-trip them exactly). Returns (the
+    mapper, ms a frame of the steps on the host clock)."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.cli import run_semantic
+    from visma_tpu_torch.io import VlslamDatasetLoader
+
+    loader = VlslamDatasetLoader(seq)
+    args = run_semantic.build_parser().parse_args(
+        semantic_cli_args(seq, models, os.devnull))
+    mapper = run_semantic.mapper_from_args(args, tool.intr, tool.mesh_db,
+                                           dev)
+    mapper.warmup(args.warmup_objects)
+    frames = [loader.grab(i, load_image=False) for i in range(len(loader))]
+    for i, fr in enumerate(frames):
+        check(np.array_equal(fr.edgemap, edges[i].cpu().numpy()),
+              f"frame {i}: the .edge file does not hold the render")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    for i, fr in enumerate(frames):
+        mapper.step(fr.gwc, edges[i], fr.bboxlist)
+    mapper.finalize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return mapper, (time.time() - t0) / len(frames) * 1e3
+
+
+def semantic_errors(mapper, T_gt):
+    """Translation (m) and rotation (deg) errors of the tracks in spawn
+    order against the ground-truth poses."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    order = sorted(mapper.tracks)
+    terr = [float(np.linalg.norm(mapper.tracks[o].pose_wm[:3, 3]
+                                 - T_gt[k][:3, 3]))
+            for k, o in enumerate(order)]
+    rerr = [float(np.degrees(Rotation.from_matrix(
+        mapper.tracks[o].pose_wm[:3, :3] @ T_gt[k][:3, :3].T).magnitude()))
+        for k, o in enumerate(order)]
+    return terr, rerr
+
+
+def tool_visualize(seq, models, root, dev, device_args=()):
+    """(d) visualize on the sequence and its result.json: the static figure,
+    and --animate's overlay PNG a frame with coloured object pixels; on
+    OVERLAY_FRAMES the overlay agrees with one made in-process from the
+    plain render and the plain depth_edge on OVERLAY_AGREE of the pixels.
+    Where matplotlib is not installed the static figure cannot be drawn:
+    the tool then runs with `--output ''`, --animate alone, and the figure
+    is reported as not drawn. Returns (the tool's seconds, the agreements,
+    whether the figure was drawn)."""
+    import importlib.util
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.cli import visualize
+    from visma_tpu_torch.image.edges import depth_edge_plain
+    from visma_tpu_torch.io import VlslamDatasetLoader, load_json, load_mesh
+    from visma_tpu_torch.render import Intrinsics
+    from visma_tpu_torch.render.raster import (
+        MultiMeshRenderer, rasterize_depth_chunked_multi_plain)
+
+    fig, anim = os.path.join(root, "scene.png"), os.path.join(root, "anim")
+    loader = VlslamDatasetLoader(seq)
+    n = len(loader)
+    figure = importlib.util.find_spec("matplotlib") is not None
+    _, _, secs = quiet_main(visualize.main, [
+        seq, "--cad-root", models, "--output", fig if figure else "",
+        "--animate", anim, *device_args])
+    check(not figure or cv2.imread(fig) is not None,
+          "visualize: no static figure")
+    pngs = sorted(f for f in os.listdir(anim) if f.startswith("overlay_")
+                  and f.endswith(".png"))
+    check(len(pngs) == n, f"visualize --animate wrote {len(pngs)} of {n}")
+
+    result = load_json(os.path.join(seq, "result.json"))
+    names = sorted({o["model_name"] for pk in result for o in pk})
+    mesh_db = {nm: load_mesh(os.path.join(models, nm + ".obj"))
+               for nm in names}
+    cam = loader.grab_camera_info()
+    p = np.asarray(cam.parameters)
+    intr = Intrinsics(fx=float(p[0]), fy=float(p[1]), cx=float(p[2]),
+                      cy=float(p[3]), rows=cam.rows, cols=cam.cols,
+                      z_near=0.05, z_far=10.0)
+    mr = MultiMeshRenderer(intr, device=dev)
+    mr.set_meshes(mesh_db)
+    agree = {}
+    for i in OVERLAY_FRAMES:
+        poses, midx, colors = visualize.packet_poses(
+            result[min(i, len(result) - 1)], loader.pose(i), mr, mesh_db)
+        d = rasterize_depth_chunked_multi_plain(
+            mr.Cs, torch.as_tensor(np.stack(poses), dtype=torch.float32,
+                                   device=dev),
+            torch.as_tensor(midx, device=dev), intr)
+        want = visualize.overlay_frame(
+            np.full((cam.rows, cam.cols, 3), 32, np.uint8),
+            depth_edge_plain(d).cpu().numpy(), colors)
+        visualize.draw_features(want, loader.dataset.packets[i])
+        got = cv2.imread(os.path.join(anim, pngs[i])).astype(int)
+        agree[i] = float((got == want).all(axis=2).mean())
+        colored = int((np.abs(got[:, :, 2] - got[:, :, 0]) > 40).sum())
+        check(agree[i] >= OVERLAY_AGREE,
+              f"visualize: frame {i} overlay agrees on {agree[i]:.5f}")
+        check(colored > 50, f"visualize: frame {i} has {colored} coloured "
+              "object pixels")
+    return secs, agree, figure
+
+
+def tool_native(seq):
+    """(e) The native decoder builds here, and on the sequence
+    packed_packets through it equals the Python codec's bit for bit.
+    Returns the two decodes' seconds."""
+    import numpy as np
+
+    from visma_tpu_torch.io import VlslamDatasetLoader, native_loader
+
+    check(native_loader.available(), "the native decoder did not build")
+    loader = VlslamDatasetLoader(seq)
+    t0 = time.time()
+    a = loader.packed_packets()
+    t1 = time.time()
+    b = loader.packed_packets(native=False)
+    t2 = time.time()
+    check(a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a),
+        "native packed_packets differs from the Python codec's")
+    check(int((a["feat_status"] > 0).sum()) > 0, "no features decoded")
+    return t1 - t0, t2 - t1
+
+
+def tools_expected(syn, mapper, n_frames, m):
+    """Launches each tool part's schedule implies. (a) one K3; (b) per
+    frame one K3 + one depth_edge of the ground truth, one K3 a yaw of
+    the full-frame retrieval (syn.retrieval_yaws: one "chair" candidate)
+    and its edge_score, and per frame and CEM
+    iteration SYN_SAMPLES K3 (full frame: pose by pose) and one edge_score;
+    (c) writing the sequence: one K3 a pose and one depth_edge; the tool
+    (and its in-process twin, each): warmup's two schedules, one batched
+    raster + one edge_score a retrieval, and per CEM iteration two batched
+    rasters (occluders, hypotheses) and one edge_score; (d) per frame one
+    K3 an object and one depth_edge."""
+    def k(frame=0, batched=0, edge=0, score=0):
+        return {"chunk_raster_frame": frame, "chunk_raster_batched": batched,
+                "depth_edge": edge, "edge_score": score}
+
+    syn_iters = SYN_FRAMES * SYN_ITERS
+    warm = mapper.cem_iters + mapper.settled_iters
+    sem = expected_semantic_launches(0, m, n_frames, mapper)
+    tool = k(batched=sem["chunk_raster_batched"] + 2 * warm,
+             score=sem["edge_score"] + warm)
+    return {"a": k(frame=1),
+            "b": k(frame=SYN_FRAMES + syn.retrieval_yaws
+                   + syn_iters * SYN_SAMPLES,
+                   edge=SYN_FRAMES, score=1 + syn_iters),
+            "c_write": k(frame=n_frames * m, edge=1),
+            "c_tool": tool, "c_twin": tool,
+            "d": k(frame=n_frames * m, edge=n_frames)}
+
+
+def tools_phase(dev, card, semantic_res):
+    """The command-line tools that compute on the card, at the bench
+    camera: (a) render_depth, (b) run_semantic --synthetic, (c)
+    run_semantic --dataroot --models on the semantic scene written to disk
+    (against the same run in-process), (d) visualize with --animate, (e)
+    the native decoder. Each part's launches are counted on their own and
+    held to its schedule. Returns the phase's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from visma_tpu_torch.io.synthetic_semantic import BENCH_INTRINSICS
+    from visma_tpu_torch.render.camera import Intrinsics
+
+    intr = Intrinsics(**BENCH_INTRINSICS)
+    t_phase = time.time()
+    got = {}
+
+    def part(name, fn, *args):
+        out, got[name] = launches_of(fn, *args)
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        secs_a = part("a", tool_render_depth, root, dev, intr)
+        syn, rec_b, secs_b = part("b", tool_run_semantic_synthetic, root)
+        synthetic_kernel_checks(syn)
+        seq, models, names, T_gt, edges = part(
+            "c_write", write_semantic_sequence, root, dev, intr, SEM_FRAMES,
+            SEM_OBJECTS)
+        tool, secs_c = part("c_tool", tool_run_semantic_dataroot, seq,
+                            models, SEM_OBJECTS)
+        twin, step_ms = part("c_twin", semantic_in_process, seq, models,
+                             tool, edges, dev)
+        secs_d, agree, figure = part("d", tool_visualize, seq, models,
+                                     root, dev)
+        native_s, python_s = tool_native(seq)
+
+    want = tools_expected(syn, tool, SEM_FRAMES, SEM_OBJECTS)
+    for name in want:
+        check(got[name] == want[name],
+              f"tools: ({name}) launches {got[name]} != {want[name]}")
+    launches = {k: sum(g[k] for g in got.values()) for k in got["a"]}
+
+    terr, rerr = semantic_errors(tool, T_gt)
+    dp = max(float(np.abs(tool.tracks[o].pose_wm[:3, 3]
+                          - twin.tracks[o].pose_wm[:3, 3]).max())
+             for o in tool.tracks)
+    check(sorted(tool.tracks) == sorted(twin.tracks)
+          and dp <= TOOL_POSE_TOL_M,
+          f"run_semantic's poses are {dp} m from the in-process mapper's")
+    check(max(terr) < TOOL_POS_GATE_M,
+          f"run_semantic --dataroot translation errors {terr} m")
+    models_got = [tool.tracks[o].model_name for o in sorted(tool.tracks)]
+    check(models_got == names,
+          f"run_semantic --dataroot retrieved {models_got} != {names}")
+    log(f"tools: (a) render_depth {secs_a:.2f} s; (b) run_semantic "
+        f"--synthetic {SYN_FRAMES}: {rec_b}, {secs_b:.2f} s [{card}]")
+    log(f"tools: (c) run_semantic --dataroot, {SEM_FRAMES} frames of the "
+        f"{SEM_OBJECTS}-object scene: {secs_c:.2f} s, "
+        f"{secs_c / SEM_FRAMES * 1e3:.1f} ms a frame with set-up (load, "
+        f"warmup, finalize); the same steps in-process {step_ms:.1f} ms a "
+        f"frame; retrieval_yaws {tool.retrieval_yaws} (the semantic phase: "
+        f"{semantic_res['retrieval_yaws']}); trans err "
+        f"{[round(x, 4) for x in terr]} m, rot err "
+        f"{[round(x, 2) for x in rerr]} deg (the semantic phase: "
+        f"{[round(x, 4) for x in semantic_res['terr']]} m, "
+        f"{[round(x, 2) for x in semantic_res['rerr']]} deg); the tool "
+        f"against in-process: max |dp| {dp:.2e} m [{card}]")
+    log(f"tools: (d) visualize --animate, {SEM_FRAMES} frames: "
+        f"{secs_d:.2f} s; the static figure "
+        + ("drawn" if figure else "NOT MET, not drawn: no matplotlib on "
+           "this machine (the CPU tests hold it to the JAX package's)")
+        + "; overlay agreement with the plain render "
+        f"{agree}; (e) packed_packets native {native_s * 1e3:.1f} ms, "
+        f"Python codec {python_s * 1e3:.1f} ms, equal; launches {launches}; "
+        f"phase {time.time() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main(argv=None):
     import torch
 
@@ -3149,14 +3697,16 @@ def main(argv=None):
 
     kernels = []
     vio_launches, vio_ate, vio_scene = vio_phase(dev, kernels)
+    sem_launches, sem_res = semantic_phase(dev, kernels)
     by_path = {"vio": vio_launches,
-               "semantic": semantic_phase(dev, kernels),
+               "semantic": sem_launches,
                "ingest": ingest_phase(dev, kernels, vio_ate),
                "slam": slam_phase(dev, vio_scene, vio_ate, card),
                "ba": ba_phase(dev, vio_scene, card),
                "pp": dist_phase(dev, vio_scene, card)}
     del vio_scene
     eval_phase(dev, card)
+    by_path["tools"] = tools_phase(dev, card, sem_res)
 
     check(sys.modules.get("jax") is None, "jax was imported")
     check(not any(k == "visma_tpu" or k.startswith("visma_tpu.")

@@ -177,6 +177,30 @@ def test_wrong_template_is_refused(tmp_path):
         load_state(str(tmp_path), _port_state("filter"))
 
 
+def test_interrupted_save_keeps_the_last_snapshot(tmp_path, monkeypatch):
+    """A save cut off while it writes `latest.json` (a worker killed
+    mid-save, as the drill kills one) leaves the previous step readable:
+    the file is replaced in one rename, never truncated in place."""
+    from visma_tpu_torch.utils import checkpoint
+    from visma_tpu_torch.utils.checkpoint import (latest_step, load_state,
+                                                  save_state)
+
+    tree = _port_state("ba")
+    save_state(str(tmp_path), tree, step=1)
+
+    def cut(*args, **kwargs):
+        raise OSError("cut off mid-write")
+
+    monkeypatch.setattr(checkpoint.json, "dump", cut)
+    with pytest.raises(OSError, match="mid-write"):
+        save_state(str(tmp_path), tree, step=2)
+    monkeypatch.undo()
+    assert latest_step(str(tmp_path)) == 1
+    for a, b in zip(_leaves_np(load_state(str(tmp_path), tree)),
+                    _leaves_np(tree)):
+        np.testing.assert_array_equal(a, b)
+
+
 # ---- the kill-and-recover drill (tests/test_multihost.py:111-158) --------
 
 def _worker(workdir, total_steps, step_sleep):

@@ -1,9 +1,9 @@
 """The port's loader and example tools on the golden fixture: the checked-in
 tests/data/golden_seq directory, encoded once with the reference's
 protoc-compiled schema, against its expected.json. The twin of
-tests/test_golden.py's loader and CLI cases for `visma_tpu_torch.io`; the
-native-decoder cases have no twin, since the port decodes with the Python
-codec only. All on the CPU, a few seconds."""
+tests/test_golden.py's loader and CLI cases for `visma_tpu_torch.io` (the
+native-decoder and vlslam_pb2 cases are tests/test_torch_native.py's). All
+on the CPU, a few seconds."""
 import json
 import pathlib
 

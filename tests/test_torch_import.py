@@ -3,8 +3,10 @@ package `visma_tpu` blocked, its sources name neither, its own copies of
 the numpy-only `proto`, `io`, `align.registration`, `eval.sampling`,
 `eval.assembly` and `utils.term` modules give what the reference's give,
 its copy of `ba.from_vio`'s host numpy is the reference's source apart
-from the device, its `Heartbeat` and `Watchdog` are the reference's
-source, and its entry points want the card unless told otherwise."""
+from the device, its `Heartbeat` and `Watchdog`, `proto.vlslam_pb2`,
+`io.native_loader` and `utils.logging` are the reference's source, every
+module file of the JAX package has its counterpart, and its entry points
+want the card unless told otherwise."""
 import os
 import re
 import subprocess
@@ -55,7 +57,11 @@ def test_imports_with_jax_blocked():
         "          'ba.gauss_newton', 'ba.pose_graph', 'ba.from_vio',\n"
         "          'dist', 'dist.mesh', 'dist.sharded_ba', 'dist.pcg_ba',\n"
         "          'dist.submap_ba', 'dist.pipeline_pp', 'dist.multihost',\n"
-        "          'utils.checkpoint', 'dryrun'):\n"
+        "          'utils.checkpoint', 'dryrun', 'utils.logging',\n"
+        "          'utils.misc', 'proto.vlslam_pb2', 'io.native_loader',\n"
+        "          'cli.render_depth', 'cli.run_semantic', 'cli.visualize',\n"
+        "          'cli.generate_depthmaps', 'cli.prepare_sfmlearner',\n"
+        "          'cli.show_2dmap'):\n"
         "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"
@@ -158,6 +164,14 @@ def test_entry_points_want_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert icp(pts, pts, 0.1, max_iters=1, device="cpu").fitness == 1.0
+
+    from visma_tpu_torch.cli import render_depth, run_semantic, visualize
+
+    for call in (lambda: render_depth.main(["cfg.json"]),
+                 lambda: run_semantic.main(["--synthetic", "2"]),
+                 lambda: visualize.main(["seq", "--animate", "anim"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 # ---------------------------------------------------------------------------
@@ -442,3 +456,42 @@ def test_heartbeat_and_watchdog_are_the_reference_source():
     for name in ("Heartbeat", "Watchdog"):
         assert inspect.getsource(getattr(T, name)) \
             == inspect.getsource(getattr(J, name)), name
+
+
+def _body_without_docstring(source):
+    """The module's AST dump without its docstring, `visma_tpu_torch` read
+    as `visma_tpu` so that the import lines compare equal."""
+    import ast
+
+    tree = ast.parse(source.replace("visma_tpu_torch", "visma_tpu"))
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) \
+            and isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    return [ast.dump(node) for node in body]
+
+
+@pytest.mark.parametrize("rel", ["proto/vlslam_pb2.py",
+                                 "io/native_loader.py", "utils/logging.py"])
+def test_copies_are_the_reference_source(rel):
+    """The shim, the ctypes binding and the logging helpers are copies:
+    their code is the reference's statement for statement, apart from the
+    package name in the import lines (and the default logger name, which
+    is the package's), the docstrings and the comments."""
+    ref = (ROOT / "visma_tpu" / rel).read_text()
+    port = (PKG / rel).read_text()
+    if rel == "utils/logging.py":
+        port = port.replace('name: str = "visma_tpu_torch"',
+                            'name: str = "visma_tpu"')
+    assert _body_without_docstring(port) == _body_without_docstring(ref)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module file of the JAX package has a file of the same relative
+    path in the port."""
+    ref = sorted(p.relative_to(ROOT / "visma_tpu")
+                 for p in (ROOT / "visma_tpu").rglob("*.py")
+                 if "__pycache__" not in p.parts)
+    assert len(ref) >= 89
+    missing = [str(r) for r in ref if not (PKG / r).is_file()]
+    assert not missing, missing

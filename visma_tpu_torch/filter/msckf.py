@@ -286,7 +286,9 @@ def _frame_step(cfg: FilterConfig, state: FilterState,
         # body rate at the frame (bias-corrected last unmasked sample)
         n = torch.sum(frame["dts"] > 0, dtype=i32)
         idx = torch.clamp(n - 1, 0, frame["gyro"].shape[0] - 1)
-        omega = (frame["gyro"][idx] - state.bg) * (n > 0)
+        # a device gather: indexing with the 0-d `idx` would read it back
+        omega = (frame["gyro"].index_select(0, idx.reshape(1)).squeeze(0)
+                 - state.bg) * (n > 0)
     else:
         state = propagate_cv(cfg, state, torch.sum(frame["dts"]))
         omega = None

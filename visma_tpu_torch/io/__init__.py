@@ -1,9 +1,9 @@
 """Dataset and asset I/O: the port's own numpy copies of the reference's
 `io.glob`, `io.loader`, `io.json_io`, `io.binary`, `io.mesh`,
-`io.synthetic`, `io.synthetic_images` and `io.procedural` modules. Imports
-neither torch nor jax. The reference's ctypes binding of the C++ decoder
-(`io/native_loader.py`) is not ported: the loader decodes with the Python
-codec of `visma_tpu_torch.proto`."""
+`io.synthetic`, `io.synthetic_images`, `io.procedural` and
+`io.native_loader` (the ctypes binding of native/vlslam_decoder.cc, which
+the loader takes when it builds, else the Python codec of
+`visma_tpu_torch.proto`). Imports neither torch nor jax."""
 
 from visma_tpu_torch.io.binary import load_mat, save_mat
 from visma_tpu_torch.io.glob import glob_by_timestamp

@@ -2,9 +2,10 @@
 reference parity: src/dataloader.cpp:49-194).
 
 Host-side ingest producing numpy (per-frame `grab`) and packed
-struct-of-arrays feeds (`packed_packets`). It decodes with the pure-Python
-codec of `visma_tpu_torch.proto`; the reference's optional ctypes binding
-of the C++ decoder (io/native_loader.py) is not ported.
+struct-of-arrays feeds (`packed_packets`). Edge maps and the packed feed
+decode with the native C++ decoder (`io.native_loader`, a ctypes binding
+of native/vlslam_decoder.cc) when it builds, else with the pure-Python
+codec of `visma_tpu_torch.proto`, as the reference's loader does.
 Numerical conventions reproduced exactly:
 
 * `gwc` is a row-major 3x4 [R|t] (dataloader.cpp:103-105);
@@ -30,12 +31,17 @@ def load_edgemap(path: str) -> Optional[np.ndarray]:
     """Load an .edge protobuf file -> float32 (rows, cols) in [0,1], None
     when the file cannot be read or decoded.
 
-    Reference LoadEdgeMap (dataloader.cpp:13-27) additionally converts to
-    u8 x255 — use `edge_u8` on the returned array for that view.
+    Uses the native C++ decoder when built; reference LoadEdgeMap
+    (dataloader.cpp:13-27) additionally converts to u8 x255 — use
+    `edge_u8` on the returned array for that view.
     """
     try:
         with open(path, "rb") as fp:
             data = fp.read()
+        from visma_tpu_torch.io import native_loader
+
+        if native_loader.available():
+            return native_loader.load_edgemap_native(data)
         return EdgeMap.decode(data).as_image()
     except Exception:
         return None
@@ -167,10 +173,13 @@ class VlslamDatasetLoader:
         return self.dataset.camera
 
     # -- packed device feed --------------------------------------------------
-    def packed_packets(self, max_features: int = 256
+    def packed_packets(self, max_features: int = 256, native: bool = True
                        ) -> Dict[str, np.ndarray]:
         """Struct-of-arrays view of all packets, ready for
         `torch.as_tensor(..., device=...)`.
+
+        `native=True` (default) routes through the C++ decoder when built
+        (native/vlslam_decoder.cc), else the Python codec.
 
         Fixed-capacity feature tables: every frame carries `max_features`
         slots; FeatureStatus.EMPTY (= 0, the proto mask value) marks unused
@@ -183,6 +192,15 @@ class VlslamDatasetLoader:
           feat_xp   (N,F,2)   float32
           feat_xw   (N,F,3)   float32
         """
+        if native:
+            from visma_tpu_torch.io import native_loader
+
+            if native_loader.available():
+                with open(os.path.join(self.dataroot, "dataset"), "rb") as fp:
+                    out = native_loader.packed_packets_native(
+                        fp.read(), max_features=max_features)
+                out.pop("feat_count", None)
+                return out
         N, F = len(self.dataset.packets), max_features
         out = {
             "ts": np.zeros(N, np.float64),

@@ -1,6 +1,9 @@
 """vlslam wire-format data model: the port's own numpy copy of the
-reference's `proto` package (protocols/vlslam.proto parity), without the
-generated `vlslam_pb2` module. Imports neither torch nor jax."""
+reference's `proto` package (protocols/vlslam.proto parity). Its
+`vlslam_pb2` is the reference's hand-written, numpy-only shim of the
+protoc-generated message API, copied on this package's codec; import it as
+`from visma_tpu_torch.proto import vlslam_pb2` (this module does not).
+Imports neither torch nor jax."""
 
 from visma_tpu_torch.proto.vlslam import (
     FeatureStatus,

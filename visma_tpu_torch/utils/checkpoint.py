@@ -61,12 +61,16 @@ def _host(x) -> np.ndarray:
 
 def save_state(path: str, tree, step: int = 0) -> None:
     """Snapshot `tree` to `path` (a directory). Reads every leaf back to
-    the host."""
+    the host. `latest.json` is replaced in one rename, after the snapshot
+    is written, so a reader, or a process killed mid-save, never finds it
+    empty or naming a step that is not on disk."""
     os.makedirs(path, exist_ok=True)
     flat = {f"leaf_{i}": _host(x) for i, x in enumerate(tree_leaves(tree))}
     np.savez(os.path.join(path, f"step_{step}.npz"), **flat)
-    with open(os.path.join(path, "latest.json"), "w") as fp:
+    tmp = os.path.join(path, "latest.json.tmp")
+    with open(tmp, "w") as fp:
         json.dump({"step": step}, fp)
+    os.replace(tmp, os.path.join(path, "latest.json"))
 
 
 def latest_step(path: str) -> int:

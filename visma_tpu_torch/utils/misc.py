@@ -1,11 +1,15 @@
-"""Health-gate utilities (port of visma_tpu/utils/misc.py:31-57) and the
+"""Small utilities (port of visma_tpu/utils/misc.py; reference parity:
+core/utils.h RandomMatrix/RandomVector :169-183, anynan :184-191,
+BilinearSample :265-274, GenerateRandomColorMap), the health gates, and the
 port's device rule."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -95,6 +99,29 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def random_matrix(n: int, m: int, scale: float = 1.0, seed: int = 0
+                  ) -> np.ndarray:
+    return (np.random.default_rng(seed).random((n, m)) * 2 - 1) * scale
+
+
+def random_vector(n: int, scale: float = 1.0, seed: int = 0) -> np.ndarray:
+    return random_matrix(n, 1, scale, seed)[:, 0]
+
+
+def any_nan(x) -> bool:
+    """True when a float tensor or numpy array among the leaves of `x`
+    (nested dataclasses, dicts, tuples, lists) holds a NaN or an infinity.
+    A host-side check: it reads the answer back; `finite_tree` is the
+    variant that stays on the device."""
+    for leaf in tree_leaves(x):
+        if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "dtype"):
+            leaf = torch.as_tensor(np.asarray(leaf))
+        if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+                and not bool(torch.isfinite(leaf).all())):
+            return True
+    return False
+
+
 def finite_tree(x) -> torch.Tensor:
     """All-finite reduction over the float tensors of a nested tuple / list /
     dict: one 0-d bool tensor on the tensors' device, computed without a
@@ -116,3 +143,24 @@ class DivergenceError(RuntimeError):
         super().__init__(
             f"filter state non-finite at frame {frame}"
             + (f" ({detail})" if detail else ""))
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample img (H,W) at (...,2) float pixel coords, the taps
+    clipped to [0, W-2] x [0, H-2]."""
+    H, W = img.shape
+    x, y = xy[..., 0], xy[..., 1]
+    x0 = torch.clamp(torch.floor(x), 0, W - 2).to(torch.int64)
+    y0 = torch.clamp(torch.floor(y), 0, H - 2).to(torch.int64)
+    fx, fy = x - x0, y - y0
+    flat = img.reshape(-1)
+    b = y0 * W + x0
+    return (flat[b] * (1 - fx) * (1 - fy) + flat[b + 1] * fx * (1 - fy)
+            + flat[b + W] * (1 - fx) * fy + flat[b + W + 1] * fx * fy)
+
+
+def generate_random_color_map(n: int = 256, seed: int = 0
+                              ) -> Dict[int, np.ndarray]:
+    """id -> BGR color (reference GenerateRandomColorMap; label displays)."""
+    rng = np.random.default_rng(seed)
+    return {i: rng.integers(0, 255, 3).astype(np.uint8) for i in range(n)}
