@@ -9,10 +9,15 @@ benches, holding each kernel against its plain PyTorch version on the
 card at the shapes the path gives it:
 
   VIO       240 frames of 500x960 adversarial imagery plus IMU
-            (bench.py:67-88) through VioPipeline(levels=4, cell=32).run;
-            gates: health, ATE < 0.10 m; kernels corner_score, lk_track
-            (one launch a tracked frame; its per-level entry lk_level is
-            held against its plain version level by level as well).
+            (bench.py:67-88) through VioPipeline(levels=4, cell=32).run,
+            which captures its step once into a CUDA graph and replays it
+            a frame; gates: health, ATE < 0.10 m, one capture, none on the
+            repeat run (K1 and K2 counted through replays alone), every
+            output equal to the eager loop's (graph=False; host ms/frame
+            in turns, device busy, ops a frame and idle share of both);
+            kernels corner_score, lk_track (one launch a tracked frame;
+            its per-level entry lk_level is held against its plain version
+            level by level as well).
   semantic  the 4-object chair/desk scene of bench.py:170-207 through
             SemanticMapper.step (detection-driven spawn with retrieval,
             45 frames, finalize); gates of bench.py:318-327: retrieved
@@ -62,7 +67,9 @@ card at the shapes the path gives it:
             pose-graph loop closure of tests/test_ba.py (< 2 cm, < a
             quarter of the drift); Msckf.run_batched over 64 feature feeds
             of 240 frames: rows 0 and 63 equal to Msckf.run to 1e-5 over
-            the first 30 frames, every row's ATE < 1 cm.
+            the first 30 frames, every row's ATE < 1 cm, one capture each
+            for run_batched and run; ms a 64-stream frame of the graph
+            against the eager loop.
   dist      the distributed layer (dist/, no hand kernel of its own, the
             reference computes it in XLA): (c) the VIO scene through
             TwoStagePipeline with both stages on the card (two CUDA
@@ -103,6 +110,14 @@ card at the shapes the path gives it:
             builds and decodes the sequence as the Python codec does.
             Kernels chunk_raster_frame, chunk_raster_batched, depth_edge,
             edge_score, each part's launches held to its schedule.
+
+    python3 chip_smoke.py --eager-vs-tree OTHER
+
+holds the eager `VioPipeline.run` of this checkout against that of the
+port in the checkout OTHER (an earlier commit, unpacked), on the VIO scene
+without and with 16 SLAM landmark slots, each tree in its own process:
+every output's largest difference and the frames where it differs, and
+both ATEs, printed as one JSON line. A comparison, no gate.
 
 For each path that runs kernels the launch counts are set to 0 just before
 it runs and read just after, and must equal what the schedule implies. No
@@ -267,6 +282,27 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def unequal_leaves(a, b):
+    """The indices of the tensor leaves of two pytrees (the port's states
+    are pytree nodes) that are not equal bit for bit, NaN equal to NaN,
+    in flattening order; [] when every leaf is."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    la, sa = tree_flatten(a)
+    lb, sb = tree_flatten(b)
+    if str(sa) != str(sb):
+        return ["the trees' structures"]
+    bad = []
+    for i, (x, y) in enumerate(zip(la, lb)):
+        same = x.shape == y.shape and x.dtype == y.dtype and bool(
+            ((x == y) | (torch.isnan(x) & torch.isnan(y))).all()
+            if x.is_floating_point() else (x == y).all())
+        if not same:
+            bad.append(f"leaf {i} {tuple(x.shape)}")
+    return bad
 
 
 def sync_counter(fn):
@@ -486,27 +522,16 @@ def old_score_chain(d, occ, dt, obs, mass):
                                 obs_mass=mass)
 
 
-def vio_phase(dev, kernels):
-    """Kernels K1, K2 against their plain versions and the VIO bench scene
-    through VioPipeline.run."""
+def vio_scene_inputs():
+    """The VIO bench scene: (cfg, frames (N_FRAMES, 500, 960), gwc, imu,
+    gyro, accel, dts), the last three over the N_FRAMES - 1 tracked
+    frames."""
     import numpy as np
-    import torch
 
     from visma_tpu_torch.filter.config import FilterConfig
-    from visma_tpu_torch.filter.msckf import check_health
-    from visma_tpu_torch.frontend.detect import (cell_best_plain,
-                                                 corner_cells, corner_score,
-                                                 corner_score_plain,
-                                                 detect_features)
-    from visma_tpu_torch.frontend.klt_fused import (lk_level, lk_level_plain,
-                                                    lk_track, lk_track_plain,
-                                                    track_features_fused)
-    from visma_tpu_torch.frontend.pyramid import build_pyramid
     from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
     from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
-    from visma_tpu_torch.pipeline import VioPipeline
 
-    t0 = time.time()
     syn = SyntheticConfig(num_frames=N_FRAMES, num_landmarks=240,
                           rows=500, cols=960, fx=486.405, fy=535.401,
                           cx=469.199, cy=257.916, seed=7)
@@ -521,6 +546,29 @@ def vio_phase(dev, kernels):
     gyro = imu["gyro"][: N * spf].reshape(N, spf, 3)
     accel = imu["accel"][: N * spf].reshape(N, spf, 3)
     dts = np.full((N, spf), dt, np.float32)
+    return cfg, frames, gwc, imu, gyro, accel, dts
+
+
+def vio_phase(dev, kernels):
+    """Kernels K1, K2 against their plain versions and the VIO bench scene
+    through VioPipeline.run."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.filter.msckf import check_health
+    from visma_tpu_torch.frontend.detect import (cell_best_plain,
+                                                 corner_cells, corner_score,
+                                                 corner_score_plain,
+                                                 detect_features)
+    from visma_tpu_torch.frontend.klt_fused import (lk_level, lk_level_plain,
+                                                    lk_track, lk_track_plain,
+                                                    track_features_fused)
+    from visma_tpu_torch.frontend.pyramid import build_pyramid
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    t0 = time.time()
+    cfg, frames, gwc, imu, gyro, accel, dts = vio_scene_inputs()
+    N = N_FRAMES - 1
     log(f"synthesised {N_FRAMES} frames at 500x960 in "
         f"{time.time() - t0:.1f} s")
 
@@ -712,20 +760,122 @@ def vio_phase(dev, kernels):
           f"lk_track launches {launches['lk_track']} != {N}: not one launch "
           "a tracked frame")
     log(f"tracked observations over the run: {int(outs['obs_valid'].sum())}")
+    graph = pipe.run_graph
+    check(graph is not None and graph.captures == 1,
+          "VioPipeline.run did not capture its step once on the card")
+    log(f"pipeline: the step captured once into a CUDA graph in "
+        f"{graph.capture_ms[0]:.1f} ms (host), after {graph.warmup} eager "
+        f"warm-up frames; the other {N - graph.warmup} frames replayed it")
 
+    # the repeat run replays every frame: K1 and K2 counted through replays
+    corner_score.launches = 0
+    lk_track.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     _, o = pipe.run(st0, d_images, d_gyro, d_accel, d_dts)
     torch.cuda.synchronize()
     rep_s = time.time() - t0
+    rep_launches = {"corner_score": corner_score.launches,
+                    "lk_track": lk_track.launches}
+    check(graph.captures == 1, f"the repeat run captured again "
+          f"({graph.captures} captures)")
+    check(rep_launches == {"corner_score": N, "lk_track": N},
+          f"repeat run launches {rep_launches}: not one K1 and one K2 a "
+          "replayed frame")
     check(np.allclose(o["p"].cpu().numpy(), p_est, atol=1e-5),
           "repeat run differs")
     log(f"pipeline repeat run: {rep_s / N * 1e3:.3f} ms/frame "
-        f"({N / rep_s:.1f} frames/s)")
+        f"({N / rep_s:.1f} frames/s), {N} replays, no capture, launches "
+        f"{rep_launches}")
     scene = {"cfg": cfg, "frames": frames, "gwc": gwc, "imu": imu,
              "images": d_images, "gyro": d_gyro, "accel": d_accel,
              "dts": d_dts}
+    vio_graph_vs_eager(dev, scene, pipe, st0, outs)
     return launches, ate, scene
+
+
+def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
+    """The graphed `VioPipeline.run` (pipe, captured and replayed) against
+    the eager loop (`graph=False`) on the VIO scene from the same start in
+    one process. Gate: every output of every frame equal (max |dp| 0.0;
+    else the first frame and the outputs that differ are reported). Host
+    ms/frame in turns, eager / graph / graph / eager (the host clock moves
+    2x between calls); over the first PP_PROFILE_FRAMES frames of each,
+    device busy ms/frame and device ops a frame under torch.profiler, and
+    the idle share 1 - busy / the host ms/frame of a profiler-off run of
+    the same frames just before."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    seq = (scene["images"], scene["gyro"], scene["accel"], scene["dts"])
+    N = seq[0].shape[0]
+    eager = VioPipeline(scene["cfg"], levels=4, cell=32, device=dev,
+                        graph=False)
+    check(eager.run_graph is None, "graph=False did not ask for the loop")
+    runs = {"eager": eager, "graph": pipe}
+    ms = {"eager": [], "graph": []}
+    res = {}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, o = runs[name].run(st0, *seq)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / N * 1e3)
+        res.setdefault(name, o)
+    differ = {}
+    for k, a in res["eager"].items():
+        b = res["graph"][k]
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
+            if a.is_floating_point() else a == b
+        rows = ~same.reshape(N, -1).all(dim=1)
+        if bool(rows.any()):
+            differ[k] = int(torch.nonzero(rows)[0])
+    max_dp = float((res["eager"]["p"] - res["graph"]["p"]).abs().max())
+    check(not differ and max_dp == 0.0,
+          f"graph and eager VioPipeline.run differ: max |dp| {max_dp} m; "
+          f"first frame that differs, by output: {differ}")
+    check(bool((res["graph"]["p"] == outs["p"]).all()),
+          "the graphed run differs from its first run")
+
+    head = tuple(x[:PP_PROFILE_FRAMES] for x in seq)
+    n = head[0].shape[0]
+    prof_res = {}
+    for name in ("eager", "graph"):
+        # the host clock over the same frames as the trace, profiler off
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name].run(st0, *head)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runs[name].run(st0, *head)
+            torch.cuda.synchronize()
+        busy, _ = device_busy_ms(prof)
+        check(busy is not None, f"the profiler saw no device work ({name})")
+        ops = len(device_spans(prof))
+        prof_res[name] = {"busy_ms_per_frame": busy / n,
+                          "ops_per_frame": ops / n,
+                          "host_ms_per_frame": host,
+                          "idle_share": 1 - busy / n / host}
+    log(f"vio graph against eager, one process, in turns eager / graph / "
+        f"graph / eager: {ms['eager'][0]:.3f} / {ms['graph'][0]:.3f} / "
+        f"{ms['graph'][1]:.3f} / {ms['eager'][1]:.3f} ms/frame (host clock, "
+        f"{N} frames); outputs equal, max |dp| {max_dp} m; over the first "
+        f"{n} frames: device busy {prof_res['graph']['busy_ms_per_frame']:.3f}"
+        f" / {prof_res['eager']['busy_ms_per_frame']:.3f} ms/frame (graph / "
+        f"eager), device ops {prof_res['graph']['ops_per_frame']:.1f} / "
+        f"{prof_res['eager']['ops_per_frame']:.1f} a frame, host "
+        f"{prof_res['graph']['host_ms_per_frame']:.3f} / "
+        f"{prof_res['eager']['host_ms_per_frame']:.3f} ms/frame, idle share "
+        f"{prof_res['graph']['idle_share']:.3f} / "
+        f"{prof_res['eager']['idle_share']:.3f}; capture "
+        f"{pipe.run_graph.capture_ms[0]:.1f} ms once")
+    log("vio graph: " + json.dumps({"ms_per_frame": ms, "max_dp_m": max_dp,
+                                    "profile": prof_res,
+                                    "capture_ms": pipe.run_graph.capture_ms}))
 
 
 def raster_work(C, poses, intr, origins, planes, ids, counts, out, sub_px):
@@ -2181,7 +2331,11 @@ def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
 
     Gates: the rows of both streams equal to `run` to 1e-5 m over the first
     `horizon` frames (tests/test_filter.py:189-213); every row finite with
-    an ATE < 1 cm (tests/test_filter.py:182, a noise-free feed). Reported, not gated: the
+    an ATE < 1 cm (tests/test_filter.py:182, a noise-free feed); the
+    graphed `run` and `run_batched` equal to their eager loops
+    (`graph=False`) in every output and final state, one capture each, and
+    a replay after nine other configurations equal to the first run.
+    Reported, not gated: the
     rows against `run` over all frames, and at each segment's first frame
     one batched step against `Msckf.step` on row 0 of the same state. A
     batched matrix product or factorisation rounds apart from a single one,
@@ -2213,7 +2367,9 @@ def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
                                  device=dev)
               for k in packs[0] if k != "ts"}
     make_s = time.time() - t0
-    kf = Msckf(cfg, device=dev)
+    # graph=True: the default on the card; on the CPU (the rehearsal) the
+    # graph's static buffers without capture
+    kf = Msckf(cfg, device=dev, graph=True)
     s0 = kf.init(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
     cur = stack_states([s0] * B)
     kf.run_batched(cur, {k: v[:, :2] for k, v in frames.items()})
@@ -2241,12 +2397,14 @@ def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
            "batched_s": batched_s, "horizon": horizon, "segment": segment,
            "step_dp_m": step_dp, "ate_min_m": float(ate.min()),
            "ate_max_m": float(ate.max())}
+    single = {}
     for b in (0, B - 1):
         torch.cuda.synchronize()
         t0 = time.time()
-        _, o = kf.run(s0, {k: v[b] for k, v in frames.items()})
+        single[b] = kf.run(s0, {k: v[b] for k, v in frames.items()})
         torch.cuda.synchronize()
         res["single_s"] = time.time() - t0
+        o = single[b][1]
         check_health(o)
         d = np.abs(o["p"].cpu().numpy() - p_b[b]).max(axis=1)
         res[f"run_dp_{horizon}_stream_{b}_m"] = float(d[:horizon].max())
@@ -2256,6 +2414,64 @@ def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
               f"{horizon} frames: {d[:horizon].max()} m")
     res["batched_frames_per_s"] = B * n_frames / batched_s
     res["single_frames_per_s"] = n_frames / res["single_s"]
+
+    # the captured Msckf.run against its eager loop (graph=False) on
+    # streams 0 and B-1: every output of every frame and the final state
+    eager = Msckf(cfg, device=dev, graph=False)
+    for b in (0, B - 1):
+        bad = unequal_leaves(single[b], eager.run(
+            s0, {k: v[b] for k, v in frames.items()}))
+        check(not bad, f"Msckf.run graph != graph=False on stream {b}: "
+              f"{bad} differ")
+    # a replay reads the step's cached constants by address: nine other
+    # filter configurations between two runs of one graph change nothing
+    for w in (3, 4, 5, 6, 7, 9, 10, 11, 12):
+        other = Msckf(replace(cfg, window=w), device=dev, graph=False)
+        other.run(other.init(R0=gwc[0, :, :3], p0=gwc[0, :, 3],
+                             v0=imu["v0"]),
+                  {k: v[0, :3] for k, v in frames.items()})
+    bad = unequal_leaves(single[0], kf.run(
+        s0, {k: v[0] for k, v in frames.items()}))
+    check(not bad, f"Msckf.run replayed after nine other configurations "
+          f"differs from its first run: {bad} differ")
+    # one capture a run shape on the card: the 2-, 1- and 24-frame calls
+    # share one, and so do the two streams through run and the run after
+    # the nine other configurations
+    want = int(dev.type == "cuda")
+    check(kf.batched_graph.captures == want and kf.run_graph.captures == want,
+          f"captures: run_batched {kf.batched_graph.captures}, run "
+          f"{kf.run_graph.captures}, not {want} each")
+
+    # the graph against the eager loop (graph=False) on one call of
+    # `segment` frames from the start, in turns eager / graph / graph /
+    # eager; every output (R, p) of every frame and the final states equal
+    start = stack_states([s0] * B)
+    seg = {k: v[:, :segment] for k, v in frames.items()}
+    eager.run_batched(start, {k: v[:, :2] for k, v in frames.items()})
+    ms, got = {"eager": [], "graph": []}, {}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = (eager if name == "eager" else kf).run_batched(start, seg)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / segment * 1e3)
+        got.setdefault(name, o)
+    res["ms_per_batched_frame"] = ms
+    res["graph_vs_eager_dp_m"] = float(
+        (got["graph"][1]["p"] - got["eager"][1]["p"]).abs().max())
+    bad = unequal_leaves(got["graph"], got["eager"])
+    check(not bad, f"run_batched graph != graph=False: {bad} differ, max "
+          f"|dp| {res['graph_vs_eager_dp_m']} m")
+    res["capture_ms"] = kf.batched_graph.capture_ms
+    # the graph's device time a frame (on the card)
+    if dev.type == "cuda":
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            kf.run_batched(start, seg)
+            torch.cuda.synchronize()
+        busy, _ = device_busy_ms(prof)
+        check(busy is not None, "the profiler saw no device work")
+        res["graph_device_busy_ms_per_frame"] = busy / segment
     return res
 
 
@@ -2325,7 +2541,15 @@ def ba_phase(dev, vio_scene, card):
         f"against Msckf.step on row 0 at each call's first frame: max "
         f"{max(f['step_dp_m']):.2e} m; ATE of the {f['streams']} rows "
         f"{f['ate_min_m']:.3e}-{f['ate_max_m']:.3e} m; feeds "
-        f"made in {f['make_host_s']:.1f} s on the host [{card}]")
+        f"made in {f['make_host_s']:.1f} s on the host; ms a {f['streams']}"
+        f"-stream frame, a call of {f['segment']} frames in turns eager / "
+        f"graph / graph / eager: {f['ms_per_batched_frame']['eager'][0]:.3f}"
+        f" / {f['ms_per_batched_frame']['graph'][0]:.3f} / "
+        f"{f['ms_per_batched_frame']['graph'][1]:.3f} / "
+        f"{f['ms_per_batched_frame']['eager'][1]:.3f}, graph against eager "
+        f"max |dp| {f['graph_vs_eager_dp_m']} m, the graph's device busy "
+        f"{f['graph_device_busy_ms_per_frame']:.3f} ms a frame, capture "
+        f"{f['capture_ms'][0]:.1f} ms once [{card}]")
     log("ba: " + json.dumps({"dryrun": a, "large": b, "vio_to_ba": c,
                              "cli": report, "pose_graph": e,
                              "batched": f}))
@@ -2340,19 +2564,25 @@ def free_port():
         return s.getsockname()[1]
 
 
-def device_busy_ms(prof):
-    """(union of the device intervals, sum of the device times) in ms from
-    a torch.profiler run: kernels, copies and sets, not the record_function
-    ranges the trace also projects onto the device; the union counts time
-    two streams overlap once. None where the trace holds no device event."""
+def device_spans(prof):
+    """The (start, end) of every device operation of a torch.profiler run:
+    kernels, copies and sets (also those a CUDA graph replays), not the
+    record_function ranges the trace also projects onto the device."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.key not in ("frontend", "filter")
-                   and e.time_range.end > e.time_range.start)
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.key not in ("frontend", "filter")
+                  and e.time_range.end > e.time_range.start)
+
+
+def device_busy_ms(prof):
+    """(union of the device intervals, sum of the device times) in ms from
+    a torch.profiler run (`device_spans`); the union counts time two
+    streams overlap once. None where the trace holds no device event."""
+    spans = device_spans(prof)
     if not spans:
         return None, None
     union, total, lo, hi = 0.0, 0.0, *spans[0]
@@ -2416,6 +2646,9 @@ def pp_two_streams(dev, scene, chunk=PP_CHUNK):
     launches = {"corner_score": corner_score.launches,
                 "lk_track": lk_track.launches}
     _, single = timed("single", lambda: pipe.run(st0, *seq))
+    # the single-stream run is a fresh VioPipeline's: its capture is inside
+    # the synchronisations counted
+    res["single_captures"] = pipe.run_graph.captures if pipe.run_graph else 0
     p_pp, p_1 = out["p"].cpu().numpy(), single["p"].cpu().numpy()
     res["max_dp_m"] = float(np.abs(p_pp - p_1).max())
     res["ate_cm"] = float(np.sqrt(np.mean(np.sum(
@@ -2757,7 +2990,8 @@ def dist_phase(dev, vio_scene, card):
         f"{c['single_device_time_ms_per_frame']}) of "
         f"{c['pp_profiled_ms_per_frame']:.3f} / "
         f"{c['single_profiled_ms_per_frame']:.3f}; host synchronisations "
-        f"{c['pp_syncs']} / {c['single_syncs']} [{card}]")
+        f"{c['pp_syncs']} / {c['single_syncs']} (the one stream's run "
+        f"captured {c['single_captures']} CUDA graph) [{card}]")
 
     check(f"{c['ate_cm']:.3f}" == f"{EARLIER_ATE_CM['vio']:.3f}",
           f"two-stage ATE {c['ate_cm']:.4f} cm != {EARLIER_ATE_CM['vio']} cm")
@@ -3660,6 +3894,81 @@ def tools_phase(dev, card, semantic_res):
     return launches
 
 
+def eager_dump(tree, out):
+    """`--eager-dump TREE OUT`, the worker of `--eager-vs-tree`: the VIO
+    scene through the eager `VioPipeline.run` of the port in TREE, with 0
+    and SLAM_SLOTS landmark slots; every output saved to OUT (npz) as
+    "<slots>/<key>", the ground truth as "gwc"."""
+    import inspect
+    from dataclasses import replace
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, tree)
+    import visma_tpu_torch
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    check(Path(tree).resolve() in Path(visma_tpu_torch.__file__).resolve()
+          .parents, f"imported {visma_tpu_torch.__file__}, not {tree}'s")
+    dev = torch.device("cuda", 0)
+    cfg, frames, gwc, imu, gyro, accel, dts = vio_scene_inputs()
+    # an earlier port's VioPipeline has no `graph` and loops eagerly
+    kw = ({"graph": False}
+          if "graph" in inspect.signature(VioPipeline).parameters else {})
+    seq = [torch.as_tensor(x, device=dev)
+           for x in (frames[1:], gyro, accel, dts)]
+    arrays = {"gwc": gwc}
+    for slots in (0, SLAM_SLOTS):
+        pipe = VioPipeline(replace(cfg, num_slam=slots), levels=4, cell=32,
+                           device=dev, **kw)
+        st0 = pipe.init(torch.as_tensor(frames[0], device=dev),
+                        R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+        _, outs = pipe.run(st0, *seq)
+        for k, v in outs.items():
+            arrays[f"{slots}/{k}"] = v.cpu().numpy()
+    np.savez(out, **arrays)
+
+
+def eager_vs_tree(other):
+    """`--eager-vs-tree OTHER` (see the module)."""
+    import tempfile
+
+    import numpy as np
+
+    res = {"this": ROOT, "other": os.path.abspath(other)}
+    with tempfile.TemporaryDirectory() as d:
+        got = {}
+        for name in ("this", "other"):
+            path = os.path.join(d, f"{name}.npz")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--eager-dump", res[name], path], check=True,
+                           timeout=900)
+            with np.load(path) as z:
+                got[name] = dict(z)
+    a, b = got["this"], got["other"]
+    check(a.keys() == b.keys(), f"the trees' outputs differ in keys: "
+          f"{sorted(a.keys() ^ b.keys())}")
+    gt = a.pop("gwc")[1:, :, 3]
+    b.pop("gwc")
+    for k in sorted(a):
+        x, y = a[k], b[k]
+        diff = x != y
+        if x.dtype.kind == "f":
+            diff &= ~(np.isnan(x) & np.isnan(y))
+        rows = np.nonzero(diff.reshape(len(x), -1).any(axis=1))[0]
+        res[k] = {"frames_differ": int(len(rows)),
+                  "first_frame": int(rows[0]) if len(rows) else None,
+                  "max_abs": float(np.abs(x.astype(np.float64)
+                                          - y.astype(np.float64)).max())}
+        if k.endswith("/p"):
+            for name, p in (("this", x), ("other", y)):
+                res[k][f"ate_cm_{name}"] = 100 * float(
+                    np.sqrt(np.mean(np.sum((p - gt) ** 2, axis=1))))
+    log("eager vs tree: " + json.dumps(res))
+
+
 def main(argv=None):
     import torch
 
@@ -3676,6 +3985,13 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--eager-dump"]:
+        eager_dump(*argv[1:])
+        return 0
+    if argv[:1] == ["--eager-vs-tree"]:
+        log(f"card: {card_line()}")
+        eager_vs_tree(argv[1])
+        return 0
     sys.path.insert(0, ROOT)
     from visma_tpu_torch import _kernels
 

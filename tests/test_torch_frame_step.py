@@ -17,15 +17,21 @@ from visma_tpu_torch.io.synthetic import (SyntheticConfig, make_dataset,
 
 
 class _HostReads(TorchDispatchMode):
-    """Counts the ops dispatched that read a tensor's value to the host."""
+    """Counts the ops dispatched that read a tensor's value to the host
+    (`reads`), and the tensors made from host data (`fresh`: `torch.tensor`
+    of a list, an index by a Python list), which on the card are copies
+    from pageable memory that a CUDA graph capture refuses."""
 
     def __init__(self):
         super().__init__()
         self.reads = 0
+        self.fresh = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func is torch.ops.aten._local_scalar_dense.default:
             self.reads += 1
+        if func is torch.ops.aten.lift_fresh.default:
+            self.fresh += 1
         return func(*args, **(kwargs or {}))
 
 

@@ -50,6 +50,8 @@ The layout mirrors the reference:
              pairwise oracle), quantitative evaluation, sampling and scene
              assembly (numpy)
   pipeline.py  VioPipeline: images + IMU -> trajectory
+  utils/graphs.py  StepGraph: the sequence runners' step captured once into
+               a CUDA graph and replayed a frame (graph=False: the loop)
   cli/         undistort_images, run_vio, evaluate, annotate, example_load,
                example_dump
   convert.py   state carried between the reference and the port
@@ -59,7 +61,8 @@ The layout mirrors the reference:
 A kernel wrapper takes its plain PyTorch version for a CPU tensor and
 launches its kernel for a CUDA tensor, or raises. An entry point runs on
 the CUDA card unless the caller passes `device="cpu"`, and raises where no
-card exists.
+card exists. A kernel wrapper's `launches` counter counts what the device
+ran, CUDA graph replays included.
 """
 
 __version__ = "0.3.0"

@@ -166,6 +166,39 @@ def vec4(W: int, *tensors: torch.Tensor) -> int:
     return int(W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+# The kernel wrappers, each with a `launches` attribute that it raises by
+# one where it launches its kernel. A CUDA graph replays launches without
+# running that Python: `utils.graphs.StepGraph` takes the launches of a
+# capture back out (`take_back_launches`) and adds them once a replay
+# (`add_launches`), so a counter counts the launches the device ran.
+_COUNTED = []
+
+
+def counted(fn):
+    """Register a kernel wrapper's launch counter, `fn.launches`, at 0."""
+    fn.launches = 0
+    _COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> dict:
+    return {fn: fn.launches for fn in _COUNTED}
+
+
+def take_back_launches(before: dict) -> dict:
+    """The launches counted since `launch_counts()` gave `before`, taken
+    back out of the counters: {wrapper: launches} of those that counted."""
+    delta = {fn: fn.launches - before.get(fn, 0) for fn in _COUNTED}
+    for fn, d in delta.items():
+        fn.launches -= d
+    return {fn: d for fn, d in delta.items() if d}
+
+
+def add_launches(delta: dict) -> None:
+    for fn, d in delta.items():
+        fn.launches += d
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device."""
     dev = tensors[0].device

@@ -14,17 +14,15 @@ Transition and noise matrices are built out of place (`with_blocks`,
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.geom.rotations import hat, rodrigues
-from visma_tpu_torch.utils.misc import with_blocks
+from visma_tpu_torch.utils.misc import device_constant, with_blocks
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _gravity_vector(gravity: float, device: torch.device) -> torch.Tensor:
     return torch.tensor([0.0, 0.0, -gravity], dtype=torch.float32,
                         device=device)

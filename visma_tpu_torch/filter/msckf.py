@@ -1,14 +1,16 @@
 """MSCKF orchestration (port of visma_tpu/filter/msckf.py).
 
 `_frame_step` is the per-frame step (propagate -> clone -> ingest tracks ->
-update); `Msckf.run` runs it over a packed sequence in a Python loop, the
-counterpart of the reference's `lax.scan`, and `Msckf.run_batched` runs the
-same step under `torch.func.vmap` over B streams, the reference's `vmap`
-inside its scan. Nothing in a step reads a value back to the host, so a
-run on the GPU queues frames without waiting; and no step writes into a
-freshly made buffer by index (blocks are placed with `with_blocks`,
-`torch.cat`, `torch.where` and out-of-place `index_put`), which vmap would
-refuse.
+update); `Msckf.run` runs it over a packed sequence, and
+`Msckf.run_batched` runs the same step under `torch.func.vmap` over B
+streams, the reference's `vmap` inside its scan. On a CUDA device both
+capture their step once into a CUDA graph and replay it once a frame
+(`utils.graphs.StepGraph`), the counterpart of the reference's jit +
+`lax.scan`; `Msckf(cfg, graph=False)` loops eagerly. Nothing in a step
+reads a value back to the host, so a run on the GPU queues frames without
+waiting; and no step writes into a freshly made buffer by index (blocks
+are placed with `with_blocks`, `torch.cat`, `torch.where` and out-of-place
+`index_put`), which vmap would refuse.
 
 Parity notes (each pinned in tests/test_torch_filter.py):
   * `jnp.argmax` takes the first maximum (msckf.py:49,153): bool masks are
@@ -21,7 +23,7 @@ Parity notes (each pinned in tests/test_torch_filter.py):
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
 from visma_tpu_torch.filter.update import msckf_update
 from visma_tpu_torch.geom.rotations import hat, rodrigues
 from visma_tpu_torch.proto import FeatureStatus
+from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
 from visma_tpu_torch.utils.misc import (DivergenceError, finite_tree,
                                         resolve_device, with_blocks)
 
@@ -226,11 +229,19 @@ def _select_for_update(cfg: FilterConfig, tracks: TrackTable, lost):
 
 
 class Msckf:
-    """Facade: per-frame step + sequence runner."""
+    """Facade: per-frame step + sequence runners."""
 
-    def __init__(self, cfg: FilterConfig, device=None):
+    def __init__(self, cfg: FilterConfig, device=None, graph: bool = None):
+        """graph: as `VioPipeline`'s (None: `run` and `run_batched` replay
+        a CUDA graph on a CUDA device and loop eagerly on the CPU; False:
+        eager; True: `StepGraph`'s static buffers, on the CPU without
+        capture)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._graph = wants_graph(graph, self.device)
+        # made by the first `run` / `run_batched` that replays a graph
+        self.run_graph: Optional[StepGraph] = None
+        self.batched_graph: Optional[StepGraph] = None
 
     def init(self, **kw) -> FilterState:
         return init_state(self.cfg, device=self.device, **kw)
@@ -241,17 +252,27 @@ class Msckf:
         valid (F,)}."""
         return _frame_step(self.cfg, state, frame)
 
+    def _run_step(self, state: FilterState, frame):
+        state = _frame_step(self.cfg, state, frame)
+        return state, _frame_outputs(self.cfg, state)
+
+    @functools.cached_property
+    def _vstep(self):
+        return torch.func.vmap(functools.partial(_frame_step, self.cfg))
+
+    def _batched_step(self, states: FilterState, frames):
+        states = self._vstep(states, frames)
+        return states, {"R": states.R, "p": states.p}
+
     def run(self, state: FilterState, frames: Dict[str, torch.Tensor]):
         """Step over a packed sequence (leading axis = frames). Returns
         (final_state, outputs) with every `_frame_outputs` key stacked
         over frames."""
-        N = next(iter(frames.values())).shape[0]
-        outs = []
-        for i in range(N):
-            state = _frame_step(self.cfg, state,
-                                {k: v[i] for k, v in frames.items()})
-            outs.append(_frame_outputs(self.cfg, state))
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        if not self._graph:
+            return run_eager(self._run_step, state, frames)
+        if self.run_graph is None:
+            self.run_graph = StepGraph(self._run_step)
+        return self.run_graph.run(state, frames)
 
     def run_batched(self, states: FilterState,
                     frames: Dict[str, torch.Tensor]):
@@ -264,15 +285,15 @@ class Msckf:
         (`stack_states` over `init`); frames: {key: (B, N, ...)}. Returns
         (final states (B, ...), {R (B,N,3,3), p (B,N,3)}). Works with SLAM
         landmarks too: the vmap covers their hooks."""
-        step = torch.func.vmap(functools.partial(_frame_step, self.cfg))
-        N = next(iter(frames.values())).shape[1]
-        Rs, ps = [], []
-        for i in range(N):
-            states = step(states, {k: v[:, i] for k, v in frames.items()})
-            Rs.append(states.R)
-            ps.append(states.p)
-        return states, {"R": torch.stack(Rs, dim=1),
-                        "p": torch.stack(ps, dim=1)}
+        frames = {k: v.transpose(0, 1) for k, v in frames.items()}
+        if not self._graph:
+            states, outs = run_eager(self._batched_step, states, frames)
+        else:
+            if self.batched_graph is None:
+                self.batched_graph = StepGraph(self._batched_step)
+            states, outs = self.batched_graph.run(states, frames)
+        return states, {k: v.transpose(0, 1).contiguous()
+                        for k, v in outs.items()}
 
 
 def _frame_step(cfg: FilterConfig, state: FilterState,

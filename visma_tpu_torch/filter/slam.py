@@ -31,7 +31,7 @@ from visma_tpu_torch.filter.update import (apply_correction,
                                            feature_jacobians,
                                            zero_landmark_gain)
 from visma_tpu_torch.geom.rotations import hat
-from visma_tpu_torch.utils.misc import cholesky_or_nan
+from visma_tpu_torch.utils.misc import cho_solve, cholesky_or_nan
 
 
 def in_state(lm_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -117,7 +117,7 @@ def slam_update(cfg: FilterConfig, state: FilterState, ids, xp,
 
     S = Hbig @ P @ Hbig.T \
         + cfg.pixel_noise ** 2 * torch.eye(2 * L, dtype=P.dtype, device=dev)
-    K = torch.cholesky_solve((P @ Hbig.T).T, cholesky_or_nan(0.5 * (S + S.T))).T
+    K = cho_solve((P @ Hbig.T).T, cholesky_or_nan(0.5 * (S + S.T))).T
     if cfg.schmidt:
         # consider states: zero gain on the whole landmark block; the
         # Joseph form below stays a valid covariance update for any gain

@@ -73,7 +73,9 @@ class FilterState:
         return _replace(self, **kw)
 
 
-def _register_pytree(cls):
+def register_pytree(cls):
+    """Register a frozen dataclass of tensors as a pytree node, its fields
+    in declaration order."""
     names = [f.name for f in fields(cls)]
     pytree.register_pytree_node(
         cls, lambda obj: ([getattr(obj, n) for n in names], None),
@@ -81,8 +83,8 @@ def _register_pytree(cls):
         serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
 
 
-_register_pytree(TrackTable)
-_register_pytree(FilterState)
+register_pytree(TrackTable)
+register_pytree(FilterState)
 
 
 def stack_states(states) -> FilterState:

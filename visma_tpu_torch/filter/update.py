@@ -6,13 +6,12 @@ pass through the orthonormal projections as information-free no-ops.
 
 The reference factors outside any Pallas kernel (`jnp.linalg.qr`,
 `cho_factor` / `cho_solve`), so the port calls `torch.linalg.qr`,
-`torch.linalg.cholesky_ex` and `torch.cholesky_solve`. A failed Cholesky
+`torch.linalg.cholesky_ex` and `torch.cholesky_solve` (on cuSOLVER, which
+a CUDA graph captures: `utils.misc.cho_solve`). A failed Cholesky
 factor is turned into NaN, which is what the reference's factor returns, so
 the gates and the health check see the same thing.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -20,10 +19,11 @@ from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.state import FilterState
 from visma_tpu_torch.filter.triangulate import _safe_z, project, triangulate
 from visma_tpu_torch.geom.rotations import hat, rodrigues
-from visma_tpu_torch.utils.misc import cholesky_or_nan
+from visma_tpu_torch.utils.misc import (cho_solve, cholesky_or_nan,
+                                      device_constant)
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _clone_placement(M: int, D: int, device: torch.device) -> torch.Tensor:
     """Constant (M, 6, D) one-hot: E[m, j, 15 + 6m + j] = 1, the clone rows
     of the identity."""
@@ -98,7 +98,7 @@ def chi2_gate(cfg: FilterConfig, r_proj, H_proj, P, dof_scale: float = 8.0):
     S = H_proj @ P @ H_proj.transpose(-1, -2)
     S = S + cfg.pixel_noise ** 2 * torch.eye(n, dtype=S.dtype,
                                              device=S.device)
-    sol = torch.cholesky_solve(r_proj[..., None], cholesky_or_nan(S))[..., 0]
+    sol = cho_solve(r_proj[..., None], cholesky_or_nan(S))[..., 0]
     m2 = torch.sum(r_proj * sol, dim=-1)
     return m2 < dof_scale * n
 
@@ -143,7 +143,7 @@ def msckf_update(cfg: FilterConfig, state: FilterState,
     S = Rc @ P @ Rc.T + cfg.pixel_noise ** 2 * eye
     L = cholesky_or_nan(0.5 * (S + S.T))
     PHt = P @ Rc.T
-    K = torch.cholesky_solve(PHt.T, L).T
+    K = cho_solve(PHt.T, L).T
     if cfg.num_slam and cfg.schmidt:
         # Schmidt/consider landmarks: zero gain on the landmark block in
         # every update, not only the landmark update (filter/slam.py)

@@ -103,7 +103,7 @@ def corner_score(image: torch.Tensor, window: int = 5, border: int = 8,
                    min_response)
 
 
-corner_score.launches = 0   # launches of the K1 kernel, by either entry
+_kernels.counted(corner_score)  # launches of the K1 kernel, by either entry
 
 
 def corner_cells(image: torch.Tensor, cell: int, window: int = 5,

@@ -94,8 +94,10 @@ def _track_level_batched(imgP, orgP, imgC, orgC, pts_l, guess, radius, iters,
     offT = pts_l - radius - orgPf   # template top-left, window coordinates
 
     def sample_T(sx, sy):
-        return _sample_windows(imgP, orgP, offT + offT.new_tensor([sx, sy]),
-                               m, win)
+        # the shift added column by column: a tensor made of [sx, sy] would
+        # be a host-to-device copy, which a CUDA graph capture refuses
+        shifted = torch.stack([offT[:, 0] + sx, offT[:, 1] + sy], dim=-1)
+        return _sample_windows(imgP, orgP, shifted, m, win)
 
     def sample_I(d):
         return _sample_windows(imgC, orgC, pts_l + d - radius - orgCf, m,

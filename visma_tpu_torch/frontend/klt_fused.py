@@ -162,7 +162,7 @@ def lk_level(imgT, imgI, orgT, orgI, stT, sI0, win: int, radius: int = 5,
     return u, stat[0], stat[1] > 0.5
 
 
-lk_level.launches = 0
+_kernels.counted(lk_level)
 
 
 _SCRATCH_FLOATS = 2 * 3 * 32    # two reduction buffers of 3 sums x 32 warps
@@ -327,7 +327,7 @@ def lk_track(prev_pyr, cur_pyr, pts: torch.Tensor, valid: torch.Tensor,
     return new_pts, ok
 
 
-lk_track.launches = 0
+_kernels.counted(lk_track)
 
 
 def track_features_fused(prev_pyr, cur_pyr, pts: torch.Tensor,

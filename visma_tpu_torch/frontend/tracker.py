@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from visma_tpu_torch.filter.msckf import scatter_max
+from visma_tpu_torch.filter.state import register_pytree
 from visma_tpu_torch.frontend.detect import detect_features
 from visma_tpu_torch.frontend.klt import track_features
 from visma_tpu_torch.frontend.klt_fused import track_features_fused
@@ -29,6 +30,9 @@ class TrackerState:
     age: torch.Tensor      # (K,) int32
     next_id: torch.Tensor  # 0-d int32
     pyr: tuple             # previous frame pyramid
+
+
+register_pytree(TrackerState)
 
 
 def occupied_cells(pos: torch.Tensor, ok: torch.Tensor, cell: int,

@@ -91,7 +91,7 @@ def depth_edge(depth: torch.Tensor, lo: float = THRESH_LOW,
     return out
 
 
-depth_edge.launches = 0
+_kernels.counted(depth_edge)
 
 
 def sobel_gradients(image: torch.Tensor):

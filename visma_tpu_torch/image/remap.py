@@ -216,4 +216,4 @@ def bilinear_remap(image: torch.Tensor, remap: torch.Tensor, *,
     return (out, branches) if return_branches else out
 
 
-bilinear_remap.launches = 0
+_kernels.counted(bilinear_remap)

@@ -4,8 +4,14 @@ visma_tpu/pipeline.py).
 One step per frame: pyramid, pyramidal LK (fused, kernel lk_track, unless
 `fused_klt=False` asks for the windowed tracker), corner detection and
 replenishment (kernel corner_score), then the MSCKF frame step. The frames
-are undistorted already (image.undistort, kernel bilinear_remap). `run` loops over a device-staged sequence; nothing in a step reads a
-value back to the host, so the GPU is fed without waiting.
+are undistorted already (image.undistort, kernel bilinear_remap). `run`
+steps over a device-staged sequence: on a CUDA device it captures the step
+into one CUDA graph and replays it once a frame (`utils.graphs.StepGraph`,
+the counterpart of the reference's jit + scan); `graph=False` asks for the
+eager loop. Nothing in a step reads a value back to the host, so the GPU
+is fed without waiting. `step` stays eager: the reference jits it call by
+call, and a graph there would need static state buffers that the caller
+owns.
 """
 from __future__ import annotations
 
@@ -18,8 +24,9 @@ from torch.profiler import record_function
 
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.msckf import Msckf, _frame_outputs, _frame_step
-from visma_tpu_torch.filter.state import FilterState
+from visma_tpu_torch.filter.state import FilterState, register_pytree
 from visma_tpu_torch.frontend.tracker import FeatureTracker, TrackerState
+from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
 from visma_tpu_torch.utils.misc import resolve_device
 
 
@@ -29,15 +36,25 @@ class PipelineState:
     filter: FilterState
 
 
+register_pytree(PipelineState)
+
+
 class VioPipeline:
     def __init__(self, cfg: FilterConfig, levels: int = 3, cell: int = 16,
-                 klt_radius: int = 5, fused_klt: bool = None, device=None):
+                 klt_radius: int = 5, fused_klt: bool = None, device=None,
+                 graph: bool = None):
+        """graph: None replays `run`'s step from a CUDA graph on a CUDA
+        device and loops it eagerly on the CPU; False always loops
+        eagerly; True always goes through `StepGraph`'s static buffers
+        (on the CPU without capture)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
                                       cell=cell, fused=fused_klt)
-        self.msckf = Msckf(cfg, device=self.device)
+        self.msckf = Msckf(cfg, device=self.device, graph=graph)
+        self.run_graph = (StepGraph(self._run_step)
+                          if wants_graph(graph, self.device) else None)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -71,21 +88,27 @@ class VioPipeline:
     def pose(self, state: PipelineState) -> Tuple[np.ndarray, np.ndarray]:
         return state.filter.R.cpu().numpy(), state.filter.p.cpu().numpy()
 
+    def _run_step(self, state: PipelineState, x: Dict[str, torch.Tensor]):
+        """`run`'s step: the frame step, the `_frame_outputs` record and the
+        tracker's observations (the reference's `scan_fn`,
+        pipeline.py:101-108)."""
+        state, (ids, xp, valid) = self.step_full(
+            state, x["image"], x["gyro"], x["accel"], x["dts"])
+        out = _frame_outputs(self.cfg, state.filter)
+        out.update({"obs_ids": ids, "obs_xp": xp, "obs_valid": valid})
+        return state, out
+
     def run(self, state: PipelineState, images, gyro, accel, dts):
         """Run over a sequence: images (N, H, W); gyro/accel (N, S, 3);
         dts (N, S). Returns (final state, outputs): the `_frame_outputs`
         record per frame plus the tracker's observations obs_ids (N, F),
-        obs_xp (N, F, 2), obs_valid (N, F), each stacked over frames."""
-        images, gyro = self._tensor(images), self._tensor(gyro)
-        accel, dts = self._tensor(accel), self._tensor(dts)
-        outs = []
-        for i in range(images.shape[0]):
-            state, (ids, xp, valid) = self.step_full(
-                state, images[i], gyro[i], accel[i], dts[i])
-            out = _frame_outputs(self.cfg, state.filter)
-            out.update({"obs_ids": ids, "obs_xp": xp, "obs_valid": valid})
-            outs.append(out)
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        obs_xp (N, F, 2), obs_valid (N, F), each stacked over frames.
+        `state` is not modified."""
+        xs = {"image": self._tensor(images), "gyro": self._tensor(gyro),
+              "accel": self._tensor(accel), "dts": self._tensor(dts)}
+        if self.run_graph is None:
+            return run_eager(self._run_step, state, xs)
+        return self.run_graph.run(state, xs)
 
 
 def export_packets(cfg: FilterConfig, outs: Dict[str, torch.Tensor],

@@ -1,18 +1,27 @@
 """Where the port's VIO pipeline spends its time on the GPU.
 
-    python -m visma_tpu_torch.profile_pipeline [--frames 60]
+    python -m visma_tpu_torch.profile_pipeline [--frames 60] [--eager]
 
 Synthesises the bench scene's imagery (500x960 adversarial frames + IMU,
-bench.py:67-88, the first `--frames` frames), runs VioPipeline once to warm
-up, then times VioPipeline.step over the frames with the host clock
-(synchronised) and traces the same frames with torch.profiler. Prints, per
-frame: wall time, the host time of the step's `frontend` and `filter`
-ranges, device busy time, the device's idle share, device operations, and
-the top operators by device and by host time. Needs a CUDA device.
+bench.py:67-88, the first `--frames` frames) and runs `VioPipeline.run`
+over it: by default the graphed run (the step captured once into a CUDA
+graph and replayed a frame), with `--eager` the eager loop
+(`graph=False`). One run warms up (and captures), one is timed with the
+host clock (synchronised), one is traced with torch.profiler. Prints, per
+frame: wall time, device busy time, device operations, the device's idle
+share of the profiler-off run, and the top operators by device and by host
+time. A replay runs no Python, so the graphed run has no `frontend` /
+`filter` ranges: its numbers come from the device operations alone. With
+`--eager` it also prints the host time of the step's two ranges and what
+the ranges themselves cost with the profiler off: the eager run with its
+`record_function` spans against the same run with `record_function` bound
+to a null context, in alternating pairs, and a span entered and left
+alone. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import time
 
@@ -21,15 +30,32 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import visma_tpu_torch.pipeline as pipeline
 from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
 from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.pipeline import VioPipeline
 
+RANGES = ("frontend", "filter")
+SPAN_REPS = 100_000
+SPAN_PAIRS = 8
+
+
+def host_ms(fn, n):
+    """Host ms a frame of fn() over n frames, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager loop (graph=False) and time "
+                         "its record_function spans")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_pipeline: needs a CUDA device")
@@ -52,47 +78,71 @@ def main(argv=None):
     gyro = t(imu["gyro"][: N * spf].reshape(N, spf, 3))
     accel = t(imu["accel"][: N * spf].reshape(N, spf, 3))
     dts = t(np.full((N, spf), float(np.diff(imu["ts_state"])[0])))
-    pipe = VioPipeline(cfg, levels=4, cell=32, device=dev)
+    pipe = VioPipeline(cfg, levels=4, cell=32, device=dev,
+                       graph=False if args.eager else None)
     st0 = pipe.init(t(frames[0]), R0=gwc[0, :, :3], p0=gwc[0, :, 3],
                     v0=imu["v0"])
 
     def run():
-        st = st0
-        for i in range(N):
-            st = pipe.step(st, images[i], gyro[i], accel[i], dts[i])
-        return st
+        return pipe.run(st0, images, gyro, accel, dts)
 
-    run()                                       # warm-up
-    torch.cuda.synchronize()
+    mode = "eager loop" if args.eager else "graph"
     t0 = time.perf_counter()
-    run()
+    run()                                       # warm-up (and capture)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / N * 1e3
-    t0 = time.perf_counter()
-    pipe.run(st0, images, gyro, accel, dts)
-    torch.cuda.synchronize()
-    run_ms = (time.perf_counter() - t0) / N * 1e3
+    first_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = host_ms(run, N)
+    if pipe.run_graph is not None:
+        print(f"captured {pipe.run_graph.captures} graph(s) in "
+              f"{pipe.run_graph.capture_ms[0]:.1f} ms (host); the first "
+              f"run with its warm-up frames took {first_ms:.1f} ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    ranges = ("frontend", "filter")
     on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and e.key not in ranges]         # kernels, memcpy, memset
+                 and e.key not in RANGES]         # kernels, memcpy, memset
     dev_ms = sum(e.self_device_time_total for e in on_device) / N / 1e3
-    n_kernels = sum(e.count for e in on_device) / N
-    host = {e.key: e.cpu_time_total / N / 1e3 for e in events
-            if e.device_type == DeviceType.CPU and e.key in ranges}
-    print(f"frames {N}; wall {wall_ms:.3f} ms/frame stepping, "
-          f"{run_ms:.3f} ms/frame through VioPipeline.run (host clock, "
-          f"synchronised, profiler off)")
-    print(f"host time in ranges (profiler on): frontend "
-          f"{host.get('frontend', 0.0):.3f} ms/frame, filter "
-          f"{host.get('filter', 0.0):.3f} ms/frame")
-    print(f"device busy {dev_ms:.3f} ms/frame ({n_kernels:.0f} device "
+    n_ops = sum(e.count for e in on_device) / N
+    print(f"frames {N}; wall {wall_ms:.3f} ms/frame through "
+          f"VioPipeline.run, {mode} (host clock, synchronised, profiler off)")
+    if args.eager:
+        host = {e.key: e.cpu_time_total / N / 1e3 for e in events
+                if e.device_type == DeviceType.CPU and e.key in RANGES}
+        print(f"host time in ranges (profiler on): frontend "
+              f"{host.get('frontend', 0.0):.3f} ms/frame, filter "
+              f"{host.get('filter', 0.0):.3f} ms/frame")
+        # what a span costs the host with the profiler off: entered and
+        # left SPAN_REPS times alone, then the eager run with its spans
+        # against the same run with record_function bound to a null
+        # context, SPAN_PAIRS pairs, the first of a pair alternating
+        t0 = time.perf_counter()
+        for _ in range(SPAN_REPS):
+            with pipeline.record_function("frontend"):
+                pass
+        span_us = (time.perf_counter() - t0) / SPAN_REPS * 1e6
+        spans = {True: [], False: []}
+        for k in range(SPAN_PAIRS):
+            for with_spans in ((True, False) if k % 2 == 0
+                               else (False, True)):
+                saved = pipeline.record_function
+                if not with_spans:
+                    pipeline.record_function = contextlib.nullcontext
+                try:
+                    spans[with_spans].append(host_ms(run, N))
+                finally:
+                    pipeline.record_function = saved
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in spans.items()}
+        print(f"record_function spans, profiler off: {span_us:.3f} us a span "
+              f"alone, two a frame = {2 * span_us / 1e3:.4f} ms/frame; the "
+              f"eager run over {SPAN_PAIRS} pairs, median (quartiles) with "
+              f"spans {q[True][1]:.3f} ({q[True][0]:.3f}-{q[True][2]:.3f}), "
+              f"without {q[False][1]:.3f} ({q[False][0]:.3f}-"
+              f"{q[False][2]:.3f}) ms/frame")
+    print(f"device busy {dev_ms:.3f} ms/frame ({n_ops:.1f} device "
           f"ops/frame); idle share {1 - dev_ms / wall_ms:.3f} of the "
-          f"profiler-off step time")
+          f"profiler-off run")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15))
 

@@ -225,7 +225,7 @@ def edge_score(rendered_depth: torch.Tensor,
     return scores
 
 
-edge_score.launches = 0
+_kernels.counted(edge_score)
 
 
 def occlusion_aware_edge_score(rendered_depth: torch.Tensor,

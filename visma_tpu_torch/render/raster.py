@@ -337,7 +337,7 @@ def chunk_raster_frame(planes, ids, counts, intr: Intrinsics) -> torch.Tensor:
     return out
 
 
-chunk_raster_frame.launches = 0
+_kernels.counted(chunk_raster_frame)
 
 
 def chunk_raster_batched(planes, ids, counts, intr: Intrinsics
@@ -363,7 +363,7 @@ def chunk_raster_batched(planes, ids, counts, intr: Intrinsics
     return out
 
 
-chunk_raster_batched.launches = 0
+_kernels.counted(chunk_raster_batched)
 
 
 # ---------------------------------------------------------------------------

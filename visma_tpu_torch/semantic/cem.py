@@ -31,7 +31,6 @@ reference does, draw for draw.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -43,7 +42,7 @@ from visma_tpu_torch.render.likelihood import (edge_distance_transform,
                                                occlusion_aware_edge_score)
 from visma_tpu_torch.render.raster import (
     rasterize_depth_chunked_multi, rasterize_depth_chunked_multi_roi)
-from visma_tpu_torch.utils.misc import resolve_device
+from visma_tpu_torch.utils.misc import device_constant, resolve_device
 
 # Shared CEM schedule constants: the mapper's async path and the defaults
 # of refine_pose_cem_batched must agree (async == sync parity).
@@ -180,7 +179,7 @@ def _crop(img: torch.Tensor, origins: torch.Tensor, roi) -> torch.Tensor:
     return img[idx, rows[:, :, None], cols[:, None, :]]
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _others_index(n: int, device) -> torch.Tensor:
     """For each of n objects the indices of the other n-1, flattened to
     n*(n-1), on the device (cached: building it copies from the host)."""

@@ -1,0 +1,245 @@
+"""Sequence runners over a functional step: one captured CUDA graph
+replayed once a frame, the port's counterpart of the reference's `jax.jit`
++ `lax.scan` over a sequence (visma_tpu/pipeline.py:84-116,
+visma_tpu/filter/msckf.py:254-305).
+
+A step is `body(state, x) -> (state, out)` over pytrees of tensors (the
+port's states are registered pytree nodes). `run_eager` loops it over the
+leading axis of the inputs and stacks the outputs. `StepGraph.run` does
+the same through static buffers:
+
+  * the state and one frame's inputs live in buffers made once; each frame
+    the host copies its inputs in, the step reads only the buffers and ends
+    by copying its new state back into the state buffers, so one graph
+    serves every frame. The caller's start state is copied in, never
+    aliased, and the final state handed back is a copy;
+  * on a CUDA device the first `warmup` frames run eagerly on a side
+    stream (they are real frames: they create the cuBLAS / cuSOLVER
+    handles and workspaces and the step's cached constants outside
+    capture; those constants are `utils.misc.device_constant`s, never
+    freed, since every replay reads them by address), the next frame is
+    captured on that stream into a private memory pool and replayed, and
+    every later frame is a replay. The host
+    never waits for the device: no `torch.cuda.graph` context (it
+    synchronises on entry). A capture that fails raises
+    `GraphCaptureError` naming the line of the port that failed; nothing
+    falls back to eager work;
+  * the graph is kept per shapes, dtypes and devices of the state and of a
+    frame's inputs (not per sequence length), so a later run of the same
+    shapes copies its start state in and replays from its first frame;
+  * after each frame the host copies the step's outputs into the
+    preallocated (N, ...) record;
+  * a CUDA graph replays kernels without running the Python that counts
+    them: the launches a capture records (`_kernels.launch_counts`) are
+    taken back out of the counters and added once a replay;
+  * on the CPU the same copy-in / step / copy-out runs with no capture.
+"""
+from __future__ import annotations
+
+import time
+import traceback
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from visma_tpu_torch import _kernels
+
+_TORCH = str(Path(torch.__file__).parent)
+
+
+class GraphCaptureError(RuntimeError):
+    """A step could not be captured into a CUDA graph."""
+
+
+def wants_graph(graph: Optional[bool], device: torch.device) -> bool:
+    """A runner's `graph` argument: None means a graph on a CUDA device and
+    the eager loop on the CPU; True or False asks for one or the other (a
+    graph asked for on the CPU runs `StepGraph`'s buffers without
+    capture)."""
+    return device.type == "cuda" if graph is None else bool(graph)
+
+
+def run_eager(body: Callable, state, xs):
+    """`body` over the leading axis of every input leaf of `xs`, one eager
+    step a frame; returns (final state, the outputs stacked over frames)."""
+    leaves, spec = pytree.tree_flatten(xs)
+    outs = []
+    for i in range(leaves[0].shape[0]):
+        state, out = body(state, pytree.tree_unflatten(
+            [x[i] for x in leaves], spec))
+        outs.append(pytree.tree_flatten(out))
+    stacked = [torch.stack(col) for col in zip(*(o[0] for o in outs))]
+    return state, pytree.tree_unflatten(stacked, outs[0][1])
+
+
+def _signature(leaves) -> tuple:
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _failed_at(exc: BaseException) -> str:
+    """The innermost line outside PyTorch in the traceback of `exc`: the
+    op of the step that failed."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if not f.filename.startswith(_TORCH)]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} ({f.line})"
+
+
+@dataclass
+class _Entry:
+    """The buffers, and once captured the graph, of one run shape."""
+    s_spec: object
+    x_spec: object
+    state: list                  # static state buffers, one a state leaf
+    inputs: list                 # static buffers of one frame's inputs
+    stream: Optional[torch.cuda.Stream]   # warm-ups and capture (CUDA)
+    warm: int = 0                # eager frames stepped on these buffers
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    outputs: Optional[list] = None        # the captured step's outputs
+    out_spec: object = None
+    launches: Optional[dict] = None       # kernel launches a replay makes
+
+
+class StepGraph:
+    """`body` run over a sequence through static buffers, captured once a
+    run shape into a CUDA graph on a CUDA device (see the module)."""
+
+    warmup = 2           # eager frames before a run shape's capture
+
+    def __init__(self, body: Callable):
+        self.body = body
+        self.captures = 0            # graphs captured by this runner
+        self.capture_ms = []         # host ms of each capture
+        self._entries = {}
+
+    def run(self, state, xs):
+        """(final state, the step's outputs stacked over the leading axis
+        of `xs`), as `run_eager(self.body, state, xs)` returns them."""
+        s_leaves, s_spec = pytree.tree_flatten(state)
+        x_leaves, x_spec = pytree.tree_flatten(xs)
+        n = x_leaves[0].shape[0]
+        if n == 0:
+            raise ValueError("StepGraph.run: an empty sequence")
+        key = (str(s_spec), str(x_spec), _signature(s_leaves),
+               _signature([x[0] for x in x_leaves]))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _Entry(
+                s_spec=s_spec, x_spec=x_spec,
+                state=[t.clone() for t in s_leaves],
+                inputs=[torch.empty_like(x[0],
+                                         memory_format=torch.contiguous_format)
+                        for x in x_leaves],
+                stream=self._side_stream(x_leaves[0].device))
+        else:
+            for b, t in zip(entry.state, s_leaves):
+                b.copy_(t)
+        record = None
+        for i in range(n):
+            for b, x in zip(entry.inputs, x_leaves):
+                b.copy_(x[i])
+            if entry.graph is None and entry.stream is not None \
+                    and entry.warm >= self.warmup:
+                try:
+                    self._capture(entry)
+                except GraphCaptureError:
+                    del self._entries[key]
+                    raise
+            if entry.graph is not None:
+                entry.graph.replay()
+                _kernels.add_launches(entry.launches)
+                outs, out_spec = entry.outputs, entry.out_spec
+            else:
+                outs, out_spec = self._eager(entry)
+            if record is None:
+                record = [torch.empty((n, *t.shape), dtype=t.dtype,
+                                      device=t.device) for t in outs]
+            for r, t in zip(record, outs):
+                r[i].copy_(t)
+        final = pytree.tree_unflatten([b.clone() for b in entry.state],
+                                      entry.s_spec)
+        return final, pytree.tree_unflatten(record, out_spec)
+
+    @staticmethod
+    def _side_stream(device: torch.device):
+        """The stream of a run shape's warm-ups and capture; None on the
+        CPU, where nothing is captured."""
+        return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def _step(self, entry: _Entry):
+        """One step on the static buffers: the body, then its new state
+        copied into the state buffers. Returns (output leaves, spec)."""
+        state = pytree.tree_unflatten(entry.state, entry.s_spec)
+        new, out = self.body(state, pytree.tree_unflatten(entry.inputs,
+                                                          entry.x_spec))
+        new_leaves, new_spec = pytree.tree_flatten(new)
+        if str(new_spec) != str(entry.s_spec) \
+                or _signature(new_leaves) != _signature(entry.state):
+            raise ValueError("StepGraph: the step changed the state's "
+                             "structure, shapes or dtypes")
+        # a leaf that shares memory with a state buffer it is not would be
+        # overwritten by the copies below before it is read: copy it first
+        held = {_storage(b) for b in entry.state if b.numel()}
+        new_leaves = [t if t is b or _storage(t) not in held else t.clone()
+                      for b, t in zip(entry.state, new_leaves)]
+        out_leaves, out_spec = pytree.tree_flatten(out)
+        out_leaves = [t.clone() if t.numel() and _storage(t) in held else t
+                      for t in out_leaves]
+        for b, t in zip(entry.state, new_leaves):
+            if t is not b:
+                b.copy_(t)
+        return out_leaves, out_spec
+
+    def _eager(self, entry: _Entry):
+        """A step without capture: on the CPU as it is, on CUDA on the side
+        stream, ordered after the copies in and before the copies out."""
+        entry.warm += 1
+        if entry.stream is None:
+            return self._step(entry)
+        cur = torch.cuda.current_stream(entry.stream.device)
+        entry.stream.wait_stream(cur)
+        with torch.cuda.stream(entry.stream):
+            outs = self._step(entry)
+        cur.wait_stream(entry.stream)
+        return outs
+
+    def _capture(self, entry: _Entry) -> None:
+        cur = torch.cuda.current_stream(entry.stream.device)
+        graph = torch.cuda.CUDAGraph()
+        before = _kernels.launch_counts()
+        entry.stream.wait_stream(cur)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(entry.stream):
+            graph.capture_begin()
+            try:
+                outs, out_spec = self._step(entry)
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass      # the capture was invalidated by `exc`
+                raise GraphCaptureError(
+                    f"CUDA graph capture failed at {_failed_at(exc)}: "
+                    f"{type(exc).__name__}: {exc}") from exc
+            finally:
+                # what the body's Python counted launched nothing yet
+                launches = _kernels.take_back_launches(before)
+            try:
+                graph.capture_end()
+            except RuntimeError as exc:
+                raise GraphCaptureError(
+                    f"CUDA graph capture failed at its end: {exc}") from exc
+        cur.wait_stream(entry.stream)
+        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        self.captures += 1
+        entry.graph, entry.outputs, entry.out_spec = graph, outs, out_spec
+        entry.launches = launches

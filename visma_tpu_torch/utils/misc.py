@@ -7,6 +7,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Dict
 
 import numpy as np
@@ -56,7 +57,16 @@ def with_blocks(base: torch.Tensor, blocks) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+def device_constant(fn):
+    """`fn` cached per arguments for the life of the process: a constant
+    tensor made once per shape and device. It is never evicted, because a
+    captured CUDA graph (`utils.graphs.StepGraph`) reads it by address on
+    every replay: a bounded cache would free it, and the allocator would
+    hand its memory to other tensors while the graph still reads it."""
+    return functools.lru_cache(maxsize=None)(fn)
+
+
+@device_constant
 def _footprint(R: int, C: int, r0: int, c0: int, h: int, w: int,
                device: torch.device) -> torch.Tensor:
     """Constant (R, C) bool mask of rows [r0, r0+h) x columns [c0, c0+w),
@@ -74,6 +84,30 @@ def cholesky_or_nan(S: torch.Tensor, upper: bool = False) -> torch.Tensor:
     L, info = torch.linalg.cholesky_ex(S, upper=upper)
     bad = (info != 0)[..., None, None]
     return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+_LINALG_LIBRARY = threading.Lock()
+
+
+def cho_solve(B: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """`torch.cholesky_solve(B, L)` (L lower), on cuSOLVER for CUDA
+    tensors. PyTorch's default gives a batched CUDA solve (the gate's
+    per-feature solves, every solve under `Msckf.run_batched`'s vmap) to
+    MAGMA, whose batched potrs allocates device memory itself, which a CUDA
+    graph capture refuses; cuSOLVER's does not. The eager loops take the
+    same library, so that a replayed graph and the eager loop agree bit for
+    bit. PyTorch holds the preferred library process-wide: it is switched
+    for this one call under a lock, so that no other caller here restores
+    it in between. CPU tensors solve with LAPACK and touch nothing."""
+    if not B.is_cuda:
+        return torch.cholesky_solve(B, L)
+    with _LINALG_LIBRARY:
+        prev = torch.backends.cuda.preferred_linalg_library()
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        try:
+            return torch.cholesky_solve(B, L)
+        finally:
+            torch.backends.cuda.preferred_linalg_library(prev)
 
 
 def as_f32(x, device) -> torch.Tensor:
