@@ -20,9 +20,15 @@ card at the shapes the path gives it:
             level by level as well).
   semantic  the 4-object chair/desk scene of bench.py:170-207 through
             SemanticMapper.step (detection-driven spawn with retrieval,
-            45 frames, finalize); gates of bench.py:318-327: retrieved
-            models, 4 tracks, every translation error < 0.05 m, mean
-            rotation error < 5 deg, worst < 10 deg; kernels
+            45 frames, finalize), whose CEM and retrieval replay the
+            CUDA graphs that warmup captured; gates of bench.py:318-327:
+            retrieved models, 4 tracks, every translation error < 0.05 m,
+            mean rotation error < 5 deg, worst < 10 deg; one capture an
+            executor key, none on a repeat run (launches counted through
+            replays alone), 0 host synchronisations in settled steps and
+            in a capture; poses and scores of every frame equal to the
+            eager mapper's (graph=False; run in turns graph / eager /
+            graph / eager, settled ms/frame of each); kernels
             chunk_raster_frame, chunk_raster_batched (also on a set of
             windows made to hurt their coarse cull), depth_edge and
             edge_score (one call a CEM iteration and a retrieval).
@@ -94,14 +100,16 @@ card at the shapes the path gives it:
             camera (500x960): (a) render_depth of the procedural chair
             against the plain render (depthmap.bin: no coverage flip,
             1e-6 relative; mask.bin the same bytes); (b) run_semantic
-            --synthetic 4 with tests/test_cli.py's flags and gates, and
+            --synthetic 4 with tests/test_cli.py's flags and gates, its
+            result equal to an eager in-process twin's (graph=False), and
             at its 120x160 full-frame shapes K3, depth_edge and edge_score
             (no occluder) against their plain versions; (c) the
             semantic scene written to disk (gwc, the card's ground-truth
             .edge renders, frame 0's detections, OBJ meshes) through
             run_semantic --dataroot --models with the semantic phase's
             settings: 4 tracks, one packet a frame, every translation error
-            < 0.15 m, poses equal to the same run in-process to 1e-6 m;
+            < 0.15 m, every packet equal to the same run in-process,
+            eagerly (graph=False);
             (d) visualize --animate on it (45 overlay PNGs; frames 0,
             22, 44 agree with an overlay of the plain render and plain
             depth_edge on 99.9% of the pixels; the static figure too where
@@ -228,7 +236,6 @@ RENDER_DEPTH_T = (0.1, 0.0, 2.4)     # the chair 2.4 m ahead, in view
 SYN_FRAMES = 4                       # tests/test_cli.py:72-90's flags
 SYN_ITERS, SYN_SAMPLES = 3, 32
 TOOL_POS_GATE_M = 0.15               # tests/test_cli.py:87
-TOOL_POSE_TOL_M = 1e-6               # the tool against the mapper in-process
 OVERLAY_AGREE = 0.999                # of the pixels, tests/test_cli.py:203
 OVERLAY_FRAMES = (0, 22, 44)
 # the JAX package's ba_solve on these problems (synthetic_ba_problem with
@@ -1266,7 +1273,9 @@ def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
     the port's own render_depth + depth_edge, spawn from detections on
     frame 0, `warm` spawn/settle frames, then drained windows of `window`
     frames, finalize. sync_counter(fn) runs fn and returns how many host
-    synchronisations PyTorch reported in it. Returns a dict of results."""
+    synchronisations PyTorch reported in it. Returns a dict of results,
+    with each frame's refined poses (N, n, 3, 4) and scores (N, n) as the
+    mapper left them on the device."""
     import numpy as np
     import torch
     from scipy.spatial.transform import Rotation
@@ -1295,10 +1304,15 @@ def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
           and bool(torch.isfinite(edge_frames).all())
           and float(edge_frames.sum()) > 0, "bad ground-truth edge frames")
 
+    trail = []      # each frame's refined poses and scores, on the device
+
+    def step(i, **kw):
+        mapper.step(gwc_at(i), edge_frames[i], **kw)
+        trail.append((mapper._dev["poses"], mapper._dev["scores"]))
+
     t0 = time.time()
-    mapper.step(gwc_at(0), edge_frames[0],
-                bboxes=gt_detections(mapper._mesh_aabb, intr, names, yaw_gt,
-                                     all_poses[0]))
+    step(0, bboxes=gt_detections(mapper._mesh_aabb, intr, names, yaw_gt,
+                                 all_poses[0]))
     sync()
     spawn_ms = (time.time() - t0) * 1e3
     spawn_order = sorted(mapper.tracks)
@@ -1312,7 +1326,7 @@ def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
 
     settle_frame = 0 if spawn_order and max(trans_errs()) < 0.075 else None
     for i in range(1, warm):
-        mapper.step(gwc_at(i), edge_frames[i])
+        step(i)
         mapper._sync_dev()
         if settle_frame is None and max(trans_errs()) < 0.075:
             settle_frame = i
@@ -1326,8 +1340,7 @@ def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
         sync()
         t0 = time.time()
         for j in range(i, i + window):
-            syncs += sync_counter(
-                lambda: mapper.step(gwc_at(j), edge_frames[j]))
+            syncs += sync_counter(lambda: step(j))
         mapper._sync_dev()      # drain the enqueued frames: honest timing
         sync()
         win_ms.append((time.time() - t0) / window * 1e3)
@@ -1355,7 +1368,9 @@ def semantic_run(mapper, intr, names, n_frames, window, warm, sync_counter):
     return {"models": models, "terr": terr, "rerr": rerr,
             "n_tracks": len(mapper.tracks), "spawn_ms": spawn_ms,
             "settle_frame": settle_frame, "win_ms": win_ms, "syncs": syncs,
-            "n_stepped": n_stepped, "need_occ_spawn": need_occ_spawn}
+            "n_stepped": n_stepped, "need_occ_spawn": need_occ_spawn,
+            "poses": torch.stack([p for p, _ in trail]),
+            "scores": torch.stack([sc for _, sc in trail])}
 
 
 def check_semantic_gates(res, names):
@@ -1389,7 +1404,42 @@ def expected_semantic_launches(n_frames_rendered, n_objects, n_stepped,
             "depth_edge": 1, "edge_score": n_objects + iters}
 
 
+def warmup_launches(mapper, n_objects):
+    """The launches `SemanticMapper.warmup(n_objects)` makes, occluders
+    rendered from poses in the window: per schedule and call, two batched
+    rasters and one edge_score a CEM iteration, and one batched raster and
+    one edge_score a call of the retrieval; each executor called once
+    eagerly, or graphed CallGraph.warmup times eagerly and then captured
+    (0) and replayed."""
+    from visma_tpu_torch.utils.graphs import CallGraph
+
+    calls = CallGraph.warmup + 1 if mapper.graphed else 1
+    iters = mapper.cem_iters + (mapper.settled_iters or 0)
+    occ = 2 if n_objects > 1 and mapper.roi is not None else 1
+    retr = 1 if mapper.roi is not None else 0
+    return {"chunk_raster_batched": calls * (occ * iters + retr),
+            "edge_score": calls * (iters + retr)}
+
+
+def executor_log(mapper):
+    """{executor key: (captures, capture ms, pool MB)} of a mapper's
+    executors, for the log."""
+    return {f"{c.strip('_').split('_')[0]} {k}": (
+        g.captures, [round(ms, 1) for ms in g.capture_ms],
+        [round(b / 2**20, 1) for b in g.pool_bytes])
+        for (c, k), g in mapper.graphs().items()}
+
+
 def semantic_phase(dev, kernels):
+    """The semantic scene through the graphed mapper (its executors
+    captured by warmup, replayed by the frames), then in turns through an
+    eager mapper (graph=False), the graphed one again (a fresh mapper on
+    the first one's renderer, whose executors are cached there: a repeat
+    run, no capture) and eager again. Gates: the semantic gates and the
+    launch schedule (first graphed run and the repeat run), poses and
+    scores of every frame equal graph against eager, one capture an
+    executor key, 0 host synchronisations in settled steps and in a
+    capture of its own (the settled schedule without occluders)."""
     import torch
 
     from visma_tpu_torch.io.procedural import bench_mesh_db
@@ -1397,22 +1447,38 @@ def semantic_phase(dev, kernels):
                                                        bench_scene)
     from visma_tpu_torch.render.camera import Intrinsics
     from visma_tpu_torch.semantic import SemanticMapper
+    from visma_tpu_torch.semantic.cem import (CEM_TAU, cem_n_elite,
+                                              fused_cem_executor)
+    from visma_tpu_torch.utils.graphs import CallGraph
 
     intr = Intrinsics(**BENCH_INTRINSICS)
     db = bench_mesh_db()
     names, _, _, _, all_poses = bench_scene(SEM_FRAMES, SEM_OBJECTS)
     log(f"semantic: mesh database "
         f"{ {n: len(F) for n, (_, F) in db.items()} } faces")
-    mapper = SemanticMapper(intr, db, cem_iters=5, cem_samples=48,
-                            roi=SEM_ROI, retrieval_yaws=24, settle_age=2,
-                            settled_iters=3, settled_samples=24,
-                            settled_sigma=(0.05, 0.03), async_frames=16,
-                            roi_spawn=True)
-    check(mapper.device.type == "cuda"
+
+    def make(graph=None, renderer=None):
+        m = SemanticMapper(intr, db, cem_iters=5, cem_samples=48,
+                           roi=SEM_ROI, retrieval_yaws=24, settle_age=2,
+                           settled_iters=3, settled_samples=24,
+                           settled_sigma=(0.05, 0.03), async_frames=16,
+                           roi_spawn=True, graph=graph)
+        if renderer is not None:
+            m.mrenderer = renderer
+        return m
+
+    mapper = make()
+    check(mapper.device.type == "cuda" and mapper.graphed
           and mapper.mrenderer.Cs.device.type == "cuda",
-          "SemanticMapper did not default to CUDA")
-    warm_s = mapper.warmup(SEM_OBJECTS)
-    log(f"semantic: warmup {warm_s:.2f} s")
+          "SemanticMapper did not default to CUDA and its graphs")
+    warm_s = {"graph": [mapper.warmup(SEM_OBJECTS)], "eager": []}
+    warm_caps = mapper.captures
+    check(warm_caps == 3 and all(g.captures == len(g._entries) == 1
+                                 for g in mapper.graphs().values()),
+          f"warmup captured {executor_log(mapper)}: not the two schedules' "
+          f"CEM and the retrieval, once each")
+    log(f"semantic: warmup {warm_s['graph'][0]:.2f} s, {warm_caps} captures "
+        f"(executor: captures, capture ms, pool MB): {executor_log(mapper)}")
 
     mesh_idx = [mapper.mrenderer.index(n) for n in names]
     semantic_kernel_checks(mapper, intr, SEM_ROI, all_poses, mesh_idx,
@@ -1427,13 +1493,72 @@ def semantic_phase(dev, kernels):
     want = expected_semantic_launches(SEM_FRAMES, SEM_OBJECTS,
                                       res["n_stepped"], mapper)
     check(launches == want, f"semantic launches {launches} != {want}")
-    # a settled step leaves the poses on the device and reads nothing back
-    check(res["syncs"] == 0,
-          f"{res['syncs']} host synchronisations in settled steps")
-    log(f"semantic: settled best {min(res['win_ms']):.3f} ms/frame "
-        f"({1e3 / min(res['win_ms']):.1f} frames/s) over drained "
-        f"{SEM_WINDOW}-frame windows; spawn frame {res['spawn_ms']:.0f} ms; "
-        f"all within 0.075 m by frame {res['settle_frame']}")
+    check(mapper.captures == warm_caps,
+          f"the frames captured anew: {executor_log(mapper)}")
+
+    runs = {"graph": [res], "eager": []}
+    for name in ("eager", "graph", "eager"):
+        m = make(False) if name == "eager" else make(None, mapper.mrenderer)
+        warm_s[name].append(m.warmup(SEM_OBJECTS))
+        r, got = launches_of(semantic_run, m, intr, names, SEM_FRAMES,
+                             SEM_WINDOW, SEM_WARM, sync_counter)
+        check_semantic_gates(r, names)
+        check(got == want, f"semantic launches ({name} run) {got} != {want}")
+        runs[name].append(r)
+    check(mapper.captures == warm_caps,
+          f"the repeat run captured: {executor_log(mapper)}")
+    for name, rs in runs.items():
+        for r in rs:
+            # a settled step leaves the poses on the device and reads
+            # nothing back
+            check(r["syncs"] == 0, f"{r['syncs']} host synchronisations "
+                                   f"in settled steps ({name})")
+            for key in ("poses", "scores"):
+                same = r[key] == res[key]
+                if not bool(same.all()):
+                    frame = int(torch.nonzero(
+                        ~same.reshape(len(same), -1).all(dim=1))[0])
+                    check(False, f"semantic {key} differ ({name} run) from "
+                                 f"frame {frame}")
+
+    # a capture of its own makes no host synchronisation either: the
+    # settled schedule without occluders, from tensors on the device
+    r0 = res["poses"][-1]
+    run = fused_cem_executor(mapper.mrenderer, CEM_TAU, mapper.settled_iters,
+                             mapper.settled_samples,
+                             cem_n_elite(mapper.settled_samples), SEM_ROI,
+                             "none", mapper.coverage_radius)
+    gen = torch.Generator(device=dev)
+    args = (torch.as_tensor(mesh_idx, device=dev), r0[:, :, :3].contiguous(),
+            r0[:, :, 3].contiguous(),
+            torch.full((SEM_OBJECTS, 6), 0.03, device=dev),
+            torch.zeros((intr.rows, intr.cols), device=dev))
+    torch.cuda.synchronize()
+    cap_syncs = sync_counter(lambda: [
+        run(*args, generator=gen.manual_seed(0))
+        for _ in range(CallGraph.warmup + 1)])
+    check(run.graph.captures == 1 and cap_syncs == 0,
+          f"a capture made {cap_syncs} host synchronisations")
+
+    settled = {k: [min(r["win_ms"]) for r in rs] for k, rs in runs.items()}
+    spawn = {k: [r["spawn_ms"] for r in rs] for k, rs in runs.items()}
+    log(f"semantic: graph against eager, in turns graph / eager / graph / "
+        f"eager: settled {settled['graph'][0]:.3f} / "
+        f"{settled['eager'][0]:.3f} / {settled['graph'][1]:.3f} / "
+        f"{settled['eager'][1]:.3f} ms/frame (best drained {SEM_WINDOW}-"
+        f"frame window); spawn frame {spawn['graph'][0]:.1f} / "
+        f"{spawn['eager'][0]:.1f} / {spawn['graph'][1]:.1f} / "
+        f"{spawn['eager'][1]:.1f} ms; warmup {warm_s['graph'][0]:.2f} / "
+        f"{warm_s['eager'][0]:.2f} / {warm_s['graph'][1]:.2f} / "
+        f"{warm_s['eager'][1]:.2f} s; poses and scores of all "
+        f"{SEM_FRAMES} frames equal; {warm_caps} captures, none in the "
+        f"frames or the repeat run; 0 host synchronisations, a capture "
+        f"included; all within 0.075 m by frame {res['settle_frame']}")
+    log("semantic graph: " + json.dumps({
+        "settled_ms_per_frame": settled, "spawn_ms": spawn,
+        "warmup_s": warm_s, "executors": executor_log(mapper),
+        "win_ms": {k: [r["win_ms"] for r in rs] for k, rs in runs.items()},
+        "capture_syncs": cap_syncs}))
     res["retrieval_yaws"] = mapper.retrieval_yaws
     return launches, res
 
@@ -3466,15 +3591,17 @@ def tool_render_depth(root, dev, intr, device_args=()):
     return secs
 
 
-def tool_run_semantic_synthetic(root, device_args=()):
+def tool_run_semantic_synthetic(root, device_args=(), graph=None):
     """(b) run_semantic --synthetic with tests/test_cli.py:72-90's flags
     and gates: one track, the retrieved model `lchair`, position error
-    under 0.15 m, one packet a frame. Returns (the tool's mapper, its
-    record, seconds)."""
+    under 0.15 m, one packet a frame. graph: the mapper's (False: the
+    eager in-process twin). Returns (the tool's mapper, its record,
+    seconds)."""
     from visma_tpu_torch.cli import run_semantic
 
-    out = os.path.join(root, "synthetic_result.json")
-    mapper, rec, secs = quiet_main(run_semantic.main, [
+    out = os.path.join(root, f"synthetic_result_{graph}.json")
+    mapper, rec, secs = quiet_main(
+        lambda argv: run_semantic.main(argv, graph=graph), [
         "--synthetic", str(SYN_FRAMES), "--output", out,
         "--cem-iters", str(SYN_ITERS), "--cem-samples", str(SYN_SAMPLES),
         *device_args])
@@ -3647,9 +3774,10 @@ def tool_run_semantic_dataroot(seq, models, m, device_args=()):
 
 
 def semantic_in_process(seq, models, tool, edges, dev):
-    """The tool's run again in-process: a SemanticMapper built as the tool
-    builds it from the same command line (its parser, its camera and mesh
-    database), warmed up as it is, stepped on the loader's poses and
+    """The tool's run again in-process and eagerly (graph=False): a
+    SemanticMapper built as the tool builds it from the same command line
+    (its parser, its camera and mesh database), warmed up as it is,
+    stepped on the loader's poses and
     detections but on the edge frames as the card rendered them (which
     checks that the .edge files round-trip them exactly). Returns (the
     mapper, ms a frame of the steps on the host clock)."""
@@ -3663,7 +3791,7 @@ def semantic_in_process(seq, models, tool, edges, dev):
     args = run_semantic.build_parser().parse_args(
         semantic_cli_args(seq, models, os.devnull))
     mapper = run_semantic.mapper_from_args(args, tool.intr, tool.mesh_db,
-                                           dev)
+                                           dev, graph=False)
     mapper.warmup(args.warmup_objects)
     frames = [loader.grab(i, load_image=False) for i in range(len(loader))]
     for i, fr in enumerate(frames):
@@ -3786,32 +3914,35 @@ def tool_native(seq):
     return t1 - t0, t2 - t1
 
 
-def tools_expected(syn, mapper, n_frames, m):
-    """Launches each tool part's schedule implies. (a) one K3; (b) per
-    frame one K3 + one depth_edge of the ground truth, one K3 a yaw of
-    the full-frame retrieval (syn.retrieval_yaws: one "chair" candidate)
-    and its edge_score, and per frame and CEM
+def tools_expected(syn, tool, twin, n_frames, m):
+    """Launches each tool part's schedule implies. (a) one K3; (b) and its
+    eager twin each: per frame one K3 + one depth_edge of the ground
+    truth, one K3 a yaw of the full-frame retrieval (syn.retrieval_yaws:
+    one "chair" candidate) and its edge_score, and per frame and CEM
     iteration SYN_SAMPLES K3 (full frame: pose by pose) and one edge_score;
     (c) writing the sequence: one K3 a pose and one depth_edge; the tool
-    (and its in-process twin, each): warmup's two schedules, one batched
-    raster + one edge_score a retrieval, and per CEM iteration two batched
-    rasters (occluders, hypotheses) and one edge_score; (d) per frame one
-    K3 an object and one depth_edge."""
+    (graphed) and its in-process twin (eager): warmup's (`warmup_launches`)
+    and one batched raster + one edge_score a retrieval, and per CEM
+    iteration two batched rasters (occluders, hypotheses) and one
+    edge_score; (d) per frame one K3 an object and one depth_edge."""
     def k(frame=0, batched=0, edge=0, score=0):
         return {"chunk_raster_frame": frame, "chunk_raster_batched": batched,
                 "depth_edge": edge, "edge_score": score}
 
     syn_iters = SYN_FRAMES * SYN_ITERS
-    warm = mapper.cem_iters + mapper.settled_iters
-    sem = expected_semantic_launches(0, m, n_frames, mapper)
-    tool = k(batched=sem["chunk_raster_batched"] + 2 * warm,
-             score=sem["edge_score"] + warm)
-    return {"a": k(frame=1),
-            "b": k(frame=SYN_FRAMES + syn.retrieval_yaws
-                   + syn_iters * SYN_SAMPLES,
-                   edge=SYN_FRAMES, score=1 + syn_iters),
+    sem = expected_semantic_launches(0, m, n_frames, tool)
+
+    def run(mapper):
+        warm = warmup_launches(mapper, m)
+        return k(batched=sem["chunk_raster_batched"]
+                 + warm["chunk_raster_batched"],
+                 score=sem["edge_score"] + warm["edge_score"])
+
+    b = k(frame=SYN_FRAMES + syn.retrieval_yaws + syn_iters * SYN_SAMPLES,
+          edge=SYN_FRAMES, score=1 + syn_iters)
+    return {"a": k(frame=1), "b": b, "b_twin": b,
             "c_write": k(frame=n_frames * m, edge=1),
-            "c_tool": tool, "c_twin": tool,
+            "c_tool": run(tool), "c_twin": run(twin),
             "d": k(frame=n_frames * m, edge=n_frames)}
 
 
@@ -3840,6 +3971,12 @@ def tools_phase(dev, card, semantic_res):
     with tempfile.TemporaryDirectory() as root:
         secs_a = part("a", tool_render_depth, root, dev, intr)
         syn, rec_b, secs_b = part("b", tool_run_semantic_synthetic, root)
+        syn_twin, _, secs_b_twin = part("b_twin",
+                                        tool_run_semantic_synthetic, root,
+                                        (), False)
+        check(syn.graphed and not syn_twin.graphed
+              and syn.history == syn_twin.history,
+              "run_semantic --synthetic differs from its eager twin")
         synthetic_kernel_checks(syn)
         seq, models, names, T_gt, edges = part(
             "c_write", write_semantic_sequence, root, dev, intr, SEM_FRAMES,
@@ -3852,7 +3989,7 @@ def tools_phase(dev, card, semantic_res):
                                      root, dev)
         native_s, python_s = tool_native(seq)
 
-    want = tools_expected(syn, tool, SEM_FRAMES, SEM_OBJECTS)
+    want = tools_expected(syn, tool, twin, SEM_FRAMES, SEM_OBJECTS)
     for name in want:
         check(got[name] == want[name],
               f"tools: ({name}) launches {got[name]} != {want[name]}")
@@ -3862,16 +3999,19 @@ def tools_phase(dev, card, semantic_res):
     dp = max(float(np.abs(tool.tracks[o].pose_wm[:3, 3]
                           - twin.tracks[o].pose_wm[:3, 3]).max())
              for o in tool.tracks)
-    check(sorted(tool.tracks) == sorted(twin.tracks)
-          and dp <= TOOL_POSE_TOL_M,
-          f"run_semantic's poses are {dp} m from the in-process mapper's")
+    check(tool.graphed and not twin.graphed
+          and sorted(tool.tracks) == sorted(twin.tracks)
+          and tool.history == twin.history,
+          f"run_semantic's packets differ from the eager in-process "
+          f"mapper's (poses up to {dp} m)")
     check(max(terr) < TOOL_POS_GATE_M,
           f"run_semantic --dataroot translation errors {terr} m")
     models_got = [tool.tracks[o].model_name for o in sorted(tool.tracks)]
     check(models_got == names,
           f"run_semantic --dataroot retrieved {models_got} != {names}")
     log(f"tools: (a) render_depth {secs_a:.2f} s; (b) run_semantic "
-        f"--synthetic {SYN_FRAMES}: {rec_b}, {secs_b:.2f} s [{card}]")
+        f"--synthetic {SYN_FRAMES}: {rec_b}, {secs_b:.2f} s (its eager "
+        f"twin {secs_b_twin:.2f} s, every packet equal) [{card}]")
     log(f"tools: (c) run_semantic --dataroot, {SEM_FRAMES} frames of the "
         f"{SEM_OBJECTS}-object scene: {secs_c:.2f} s, "
         f"{secs_c / SEM_FRAMES * 1e3:.1f} ms a frame with set-up (load, "
@@ -3882,7 +4022,8 @@ def tools_phase(dev, card, semantic_res):
         f"{[round(x, 2) for x in rerr]} deg (the semantic phase: "
         f"{[round(x, 4) for x in semantic_res['terr']]} m, "
         f"{[round(x, 2) for x in semantic_res['rerr']]} deg); the tool "
-        f"against in-process: max |dp| {dp:.2e} m [{card}]")
+        f"(graphed, {tool.captures} captures) against in-process (eager): "
+        f"every packet equal, max |dp| {dp:.2e} m [{card}]")
     log(f"tools: (d) visualize --animate, {SEM_FRAMES} frames: "
         f"{secs_d:.2f} s; the static figure "
         + ("drawn" if figure else "NOT MET, not drawn: no matplotlib on "

@@ -341,19 +341,28 @@ def _boxes(aabbs, names, poses, cls_box, cls_list):
 
 class JaxDraws:
     """Stands in for cem._draw: the draws the reference makes from
-    PRNGKey(generator.initial_seed()), one split per call."""
+    PRNGKey(generator.initial_seed()), one split per call. A generator
+    seeded anew (`manual_seed`, as the mapper's async steps do each frame)
+    starts its key chain anew: each call also draws once from the
+    generator itself, so that its state shows whether it was reseeded
+    since the last call."""
 
     def __init__(self):
-        self.keys = []          # (generator, key) pairs, by identity
+        self.keys = []          # [generator, key, state], by identity
 
     def __call__(self, generator, shape, device):
         for slot in self.keys:
             if slot[0] is generator:
                 break
         else:
-            slot = [generator, jax.random.PRNGKey(generator.initial_seed())]
+            slot = [generator, None, None]
             self.keys.append(slot)
+        if slot[2] is None or not torch.equal(generator.get_state(),
+                                              slot[2]):
+            slot[1] = jax.random.PRNGKey(generator.initial_seed())
         slot[1], sub = jax.random.split(slot[1])
+        torch.randn(1, generator=generator)
+        slot[2] = generator.get_state()
         return torch.as_tensor(np.asarray(
             jax.random.normal(sub, shape, jnp.float32)), device=device)
 
@@ -371,9 +380,9 @@ def _scene_frames(mr, names, T):
     return frames, poses0
 
 
-def run_port(async_frames, names, T, db):
+def run_port(async_frames, names, T, db, graph=None):
     mapper = SemanticMapper(TI, db, async_frames=async_frames, device="cpu",
-                            **MAPPER_KW)
+                            graph=graph, **MAPPER_KW)
     frames, poses0 = _scene_frames(mapper.mrenderer, names, T)
     for i in range(N_STEPS):
         mapper.step(gwc_at(i), frames[i],

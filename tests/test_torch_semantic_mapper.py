@@ -35,7 +35,8 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def mapper_runs(scene):
     """The two-object scene through the port's mapper (sync and async,
-    fed the reference's draws) and through the reference's (async)."""
+    and async through the executors, `graph=True`, fed the reference's
+    draws) and through the reference's (async)."""
     names = ["stool", "cabinet"]
     T = [scene["T"][0], scene["T"][2]]
     mp = pytest.MonkeyPatch()
@@ -43,6 +44,7 @@ def mapper_runs(scene):
     try:
         t_async, frames = run_port(3, names, T, scene["db"])
         t_sync, _ = run_port(0, names, T, scene["db"])
+        t_graph, _ = run_port(3, names, T, scene["db"], graph=True)
     finally:
         mp.undo()
     jm = JMapper(JI, scene["db"], async_frames=3, **MAPPER_KW)
@@ -52,7 +54,8 @@ def mapper_runs(scene):
         jm.step(gwc_at(i), jnp.asarray(frames[i].numpy()),
                 bboxes=_boxes(jm._mesh_aabb, names, poses0, JBox, JBoxes)
                 if i == 0 else None)
-    return dict(t_async=t_async, t_sync=t_sync, jm=jm, names=names, T=T)
+    return dict(t_async=t_async, t_sync=t_sync, t_graph=t_graph, jm=jm,
+                names=names, T=T)
 
 
 def test_mapper_retrieves_and_settles_like_the_reference(mapper_runs):
@@ -75,6 +78,31 @@ def test_mapper_retrieves_and_settles_like_the_reference(mapper_runs):
         assert abs(tt.score - jt.score) < 5e-3
         # coarse: at this resolution depth along the ray is weakly seen
         assert np.linalg.norm(tt.pose_wm[:3, 3] - r["T"][k][:3, 3]) < 0.15
+
+
+def test_mapper_graph_run_matches_the_reference(mapper_runs, tmp_path):
+    """The slice as a whole: the mapper through its executors (the CEM,
+    the retrieval; on the CPU their buffers), fed the reference's draws,
+    within POSE_TOL of the reference's in every packet, and bit for bit
+    the eager port's result JSON."""
+    r = mapper_runs
+    tg, ta, jm = r["t_graph"], r["t_async"], r["jm"]
+    assert tg.graphed and not ta.graphed and tg.graphs()
+    paths = [tmp_path / f"{k}.json" for k in ("graph", "eager", "jax")]
+    for m, path in zip((tg, ta, jm), paths):
+        m.write_result_json(str(path))
+    assert paths[0].read_text() == paths[1].read_text()
+    tj, jj = (json.loads(p.read_text()) for p in (paths[0], paths[2]))
+    assert len(tj) == len(jj) == N_STEPS
+    for pt, pj in zip(tj, jj):
+        assert [(o["id"], o["model_name"]) for o in pt] \
+            == [(o["id"], o["model_name"]) for o in pj]
+        for ot, oj in zip(pt, pj):
+            np.testing.assert_allclose(ot["model_pose"], oj["model_pose"],
+                                       atol=POSE_TOL)
+    for k in range(2):
+        np.testing.assert_allclose(tg.tracks[k].pose_wm, jm.tracks[k].pose_wm,
+                                   atol=POSE_TOL)
 
 
 def test_mapper_async_equals_sync(mapper_runs):

@@ -43,7 +43,8 @@ The layout mirrors the reference:
              csrc/chunk_raster.cu: one frame, and a batch of ROI windows),
              Renderer / MultiMeshRenderer, the edge likelihood (edge_score:
              kernel vt_edge_score in csrc/depth_edge.cu)
-  semantic/  batched CEM pose refinement, SemanticMapper
+  semantic/  batched CEM pose refinement, SemanticMapper (its CEM,
+             retrieval and occluder executors replay captured CUDA graphs)
   align/     Umeyama, brute-force nearest neighbours, voxel grid, ICP,
              yaw-sweep annotation, scene registration (numpy)
   eval/      error metrics (point-to-mesh distance: SoA path and the
@@ -51,7 +52,9 @@ The layout mirrors the reference:
              assembly (numpy)
   pipeline.py  VioPipeline: images + IMU -> trajectory
   utils/graphs.py  StepGraph: the sequence runners' step captured once into
-               a CUDA graph and replayed a frame (graph=False: the loop)
+               a CUDA graph and replayed a frame (graph=False: the loop);
+               CallGraph: a function captured once an input shape and
+               replayed a call (the semantic executors)
   cli/         undistort_images, run_vio, evaluate, annotate, example_load,
                example_dump
   convert.py   state carried between the reference and the port

@@ -168,7 +168,7 @@ def vec4(W: int, *tensors: torch.Tensor) -> int:
 
 # The kernel wrappers, each with a `launches` attribute that it raises by
 # one where it launches its kernel. A CUDA graph replays launches without
-# running that Python: `utils.graphs.StepGraph` takes the launches of a
+# running that Python: the runners of `utils.graphs` take the launches of a
 # capture back out (`take_back_launches`) and adds them once a replay
 # (`add_launches`), so a counter counts the launches the device ran.
 _COUNTED = []

@@ -2,7 +2,10 @@
 visma_tpu/cli/run_semantic.py) — the papers' main loop, whose OUTPUT the
 reference repo consumes as `result.json` (evaluation.cpp:163-198;
 README.md:141 describes the format). Runs on the CUDA card unless
-`--device cpu` is given.
+`--device cpu` is given; there each frame's CEM, each windowed retrieval
+and each full-frame occluder render replay a captured CUDA graph
+(`SemanticMapper`'s executors), which `--warmup-objects` captures before
+the first frame.
 
 Per frame: detections spawn object tracks (detection-driven CAD retrieval
 when the bbox carries no shape_id), tracks refine with CEM over batched
@@ -61,8 +64,9 @@ def _demo_meshes():
     return {"lchair": lmesh, "box": box}
 
 
-def mapper_from_args(args, intr, db, device):
-    """The SemanticMapper that `main` builds from its parsed arguments."""
+def mapper_from_args(args, intr, db, device, graph=None):
+    """The SemanticMapper that `main` builds from its parsed arguments;
+    graph as SemanticMapper's."""
     from visma_tpu_torch.semantic import SemanticMapper
 
     return SemanticMapper(intr, db, depth_prior=args.depth_prior,
@@ -75,7 +79,8 @@ def mapper_from_args(args, intr, db, device):
                                            if args.settled else None),
                           settled_sigma=((0.05, 0.03) if args.settled
                                          else None),
-                          async_frames=args.async_frames, device=device)
+                          async_frames=args.async_frames, device=device,
+                          graph=graph)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,14 +113,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "one fused CEM per frame, sync the host mirror "
                          "every N frames (see SemanticMapper)")
     ap.add_argument("--warmup-objects", type=int, default=0,
-                    help="build the kernels and run every CEM schedule "
-                         "for this many objects before the first frame")
+                    help="build the kernels and capture every CEM "
+                         "schedule's and the retrieval's CUDA graph for "
+                         "this many objects before the first frame")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     return ap
 
 
-def main(argv=None):
+def main(argv=None, graph=None):
+    """The tool; returns its mapper. graph: the mapper's `graph` (None:
+    the executors' CUDA graphs on the card), for an in-process eager twin;
+    the command line has no flag for it."""
     ap = build_parser()
     args = ap.parse_args(argv)
 
@@ -131,7 +140,7 @@ def main(argv=None):
         intr = Intrinsics(fx=150.0, fy=150.0, cx=79.5, cy=59.5,
                           rows=120, cols=160, z_near=0.05, z_far=10.0)
         db = _demo_meshes()
-        mapper = mapper_from_args(args, intr, db, device)
+        mapper = mapper_from_args(args, intr, db, device, graph)
 
         # ground truth: the L-mesh 2 m ahead, slightly off-axis
         true_T = np.eye(4)
@@ -181,7 +190,8 @@ def main(argv=None):
     intr = Intrinsics(fx=float(p[0]), fy=float(p[1]), cx=float(p[2]),
                       cy=float(p[3]), rows=cam.rows, cols=cam.cols,
                       z_near=0.05, z_far=10.0)
-    mapper = mapper_from_args(args, intr, _mesh_db(args.models), device)
+    mapper = mapper_from_args(args, intr, _mesh_db(args.models), device,
+                              graph)
 
     if args.warmup_objects:
         mapper.warmup(args.warmup_objects)

@@ -1,6 +1,6 @@
 """Where the port's semantic mapper spends a settled frame on the GPU.
 
-    python -m visma_tpu_torch.profile_semantic [--frames 29]
+    python -m visma_tpu_torch.profile_semantic [--frames 29] [--eager]
 
 Builds the semantic bench scene (bench.py:170-207: 500x960, the procedural
 chair and desk, 4 objects, `SemanticMapper(roi=(256, 384), cem 5x48,
@@ -8,10 +8,13 @@ settled 3x24, async_frames=16, roi_spawn=True)`), renders its ground-truth
 edge frames with the port's own renderer, spawns from detections on frame
 0, lets the tracks settle for 5 frames, then times the settled steps over
 drained 8-frame windows with the host clock and traces one window with
-torch.profiler. Prints, per settled frame: wall time, the host time of the
-mapper's and the CEM's ranges, device busy time, the device's idle share,
-device operations, and the top operators by device and by host time.
-Needs a CUDA device.
+torch.profiler. By default the mapper replays its executors' CUDA graphs
+(captured by `warmup`; a replay runs no Python, so only the mapper's own
+range `semantic.refine` shows host time); with `--eager` it runs them
+eagerly (`graph=False`), with the CEM's ranges. Prints, per settled
+frame: wall time, the host time of the mapper's and the CEM's ranges,
+device busy time, the device's idle share, device operations, and the top
+operators by device and by host time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ WARM = 5
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=WARM + 3 * WINDOW)
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager mapper (graph=False), with the "
+                         "CEM's ranges")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_semantic: needs a CUDA device")
@@ -54,10 +60,14 @@ def main(argv=None):
                             cem_samples=48, roi=(256, 384),
                             retrieval_yaws=24, settle_age=2, settled_iters=3,
                             settled_samples=24, settled_sigma=(0.05, 0.03),
-                            async_frames=16, roi_spawn=True)
+                            async_frames=16, roi_spawn=True,
+                            graph=False if args.eager else None)
     names, T_gt, yaw_gt, gwc_at, poses = bench_scene(args.frames)
     mi = np.array([mapper.mrenderer.index(n) for n in names])
-    mapper.warmup(len(names))
+    warm_s = mapper.warmup(len(names))
+    print(f"{'eager mapper' if args.eager else 'graph'}: warmup "
+          f"{warm_s:.2f} s, {mapper.captures} captures in "
+          f"{[round(ms, 1) for ms in mapper.capture_ms]} ms (host)")
     d = mapper.mrenderer.render_depth(
         poses, np.broadcast_to(mi, poses.shape[:2]).copy())
     edges = depth_edge(d.amin(dim=1))

@@ -595,6 +595,10 @@ class Renderer:
         return depth_edge(self.render_depth(g_cm))
 
 
+# The executors that semantic/ caches on a MultiMeshRenderer, by attribute
+EXECUTOR_CACHES = ("_cem_exec_cache", "_retr_exec_cache", "_occ_exec_cache")
+
+
 class MultiMeshRenderer:
     """Renderer over a database of meshes: every call takes a
     per-hypothesis mesh index, so one call renders hypothesis batches of
@@ -616,7 +620,15 @@ class MultiMeshRenderer:
         self.set_stack(Vs, Fs)
 
     def set_stack(self, Vs, Fs, names=None) -> None:
-        """Take an already padded, Morton-sorted stack (numpy)."""
+        """Take an already padded, Morton-sorted stack (numpy).
+
+        Drops the executors cached on this renderer (the fused CEM's, the
+        retrieval's and the occluders'; semantic/cem.py,
+        semantic/mapper.py): their graphs read the previous stack by
+        address, and would keep rendering the old meshes (the reference's
+        set_meshes, visma_tpu/render/raster.py:902-912)."""
+        for cache in EXECUTOR_CACHES:
+            self.__dict__.pop(cache, None)
         if names is not None:
             self.names = list(names)
         self.Vs = torch.as_tensor(np.asarray(Vs, np.float32),

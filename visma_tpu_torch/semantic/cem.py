@@ -17,17 +17,23 @@ of: the pose-group cap (`_smem_group_cap`, the `G` of
 scalar memory; here one launch takes every pose, so
 `_raster_windows_batched` is `rasterize_depth_chunked_multi_roi` itself,
 and the windows of an iteration are rendered and then scored in one
-batch), the executors cached
-on compile-time constants (`fused_cem_executor`, `retrieval_executor`'s
-cache; PyTorch runs eagerly, so `retrieval_scores` is a plain function),
-and the choice between an unrolled loop and `fori_loop`.
+batch), and the choice between an unrolled loop and `fori_loop`.
+
+The reference's jitted executors, cached on the renderer with the mesh
+stack closed over, are here captured CUDA graphs (`utils.graphs.CallGraph`)
+cached the same way: `fused_cem_executor` replays the whole fused CEM of
+a call, `retrieval_executor` one detection's retrieval scores
+(`retrieval_scores`), and `MultiMeshRenderer.set_stack` drops both caches
+with the mesh stack they read by address.
 
 Random numbers: the fused body draws from a `torch.Generator` on the
 device, which cannot reproduce `jax.random`; its `noise` argument takes
 the standard-normal draws from outside, so that a test can feed both
-implementations the same numbers. The host-refit oracle
-(`device_loop=False`) draws from `numpy.random.default_rng(seed)` as the
-reference does, draw for draw.
+implementations the same numbers. The executor makes the same draws from
+the generator before each replay, outside the graph, and hands them in as
+`noise`: the graph and the eager body take the same numbers. The
+host-refit oracle (`device_loop=False`) draws from
+`numpy.random.default_rng(seed)` as the reference does, draw for draw.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from visma_tpu_torch.render.likelihood import (edge_distance_transform,
                                                occlusion_aware_edge_score)
 from visma_tpu_torch.render.raster import (
     rasterize_depth_chunked_multi, rasterize_depth_chunked_multi_roi)
+from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 from visma_tpu_torch.utils.misc import device_constant, resolve_device
 
 # Shared CEM schedule constants: the mapper's async path and the defaults
@@ -263,10 +270,14 @@ def retrieval_scores(mrenderer, roi, hyps, mi, org1, dt, em, box):
     against the window-cropped evidence, with coverage counted only
     inside box = (x0, y0, x1, y1), whose mask is built on the device.
     Returns (B,) scores."""
+    return _retrieval_scores(mrenderer.Cs, mrenderer.intr, roi, hyps, mi,
+                             org1, dt, em, box)
+
+
+def _retrieval_scores(Cs, intr, roi, hyps, mi, org1, dt, em, box):
     B = hyps.shape[0]
     origins = org1[None].expand(B, 2)
-    d = rasterize_depth_chunked_multi_roi(mrenderer.Cs, hyps, mi, origins,
-                                          mrenderer.intr, roi)
+    d = rasterize_depth_chunked_multi_roi(Cs, hyps, mi, origins, intr, roi)
     dt_w = _crop(dt, org1[None], roi)[0]
     em_w = _crop(em, org1[None], roi)[0]
     dev = hyps.device
@@ -278,6 +289,24 @@ def retrieval_scores(mrenderer, roi, hyps, mi, org1, dt, em, box):
               & (yy >= box[1]) & (yy < box[3]))
     return occlusion_aware_edge_score(
         d, None, dt_w, torch.where(in_box, em_w, torch.zeros_like(em_w)))
+
+
+def retrieval_executor(mrenderer, roi, B: int):
+    """`retrieval_scores` of B candidates in (roi) windows as a captured
+    CUDA graph replayed once a detection (a `utils.graphs.CallGraph` on the
+    renderer's mesh stack; on the CPU its buffers without capture), cached
+    on the renderer keyed by (roi, B) as the reference's executor
+    (visma_tpu/semantic/cem.py:329-372) and dropped with the mesh stack.
+    Called as `retrieval_scores` is, without its first two arguments; the
+    box stays a tensor, so no detection's numbers are captured."""
+    cache = mrenderer.__dict__.setdefault("_retr_exec_cache", {})
+    k = (roi, B)
+    if k not in cache:
+        Cs, intr = mrenderer.Cs, mrenderer.intr
+        cache[k] = CallGraph(
+            lambda hyps, mi, org1, dt, em, box: _retrieval_scores(
+                Cs, intr, roi, hyps, mi, org1, dt, em, box))
+    return cache[k]
 
 
 def _draw(generator, shape, device) -> torch.Tensor:
@@ -338,6 +367,91 @@ def _cem_fused_body(Cs, mesh_idx, R0, t0, sig0, occ, obs, generator, intr,
     return best_pose, best_score
 
 
+OCC_MODES = ("poses", "depths", "none")
+
+
+class _CemExecutor:
+    """The fused CEM of one schedule as a captured CUDA graph (see
+    `fused_cem_executor`)."""
+
+    def __init__(self, mrenderer, tau, iters, samples, n_elite, roi,
+                 occ_mode, radius):
+        Cs, intr = mrenderer.Cs, mrenderer.intr
+        self.iters, self.samples, self.occ_mode = iters, samples, occ_mode
+
+        def body(mesh_idx, R0, t0, sig0, obs, noise, occ=None):
+            return _cem_fused_body(
+                Cs, mesh_idx, R0, t0, sig0,
+                occ if occ_mode == "depths" else None, obs, None, intr, tau,
+                iters, samples, n_elite, roi=roi,
+                occ_poses=occ if occ_mode == "poses" else None,
+                radius=radius, noise=noise)
+
+        self.graph = CallGraph(body)
+
+    def __call__(self, mesh_idx, R0, t0, sig0, obs, occ=None,
+                 generator=None, noise=None):
+        """(best poses (n,3,4), best scores (n,)) as `_cem_fused_body`
+        returns them. occ: the occluder poses (n,3,4) for "poses", the
+        occluder depths (n,H,W) for "depths", None for "none". The draws
+        come from `generator` (`iters` calls of `_draw`, in the body's
+        order) unless noise (iters, n, samples, 6) is given."""
+        if (occ is None) != (self.occ_mode == "none"):
+            raise ValueError(f"fused_cem_executor: occluders given to, or "
+                             f"missing from, occ_mode {self.occ_mode!r}")
+        if noise is None:
+            shape = (R0.shape[0], self.samples, 6)
+            noise = [_draw(generator, shape, R0.device)
+                     for _ in range(self.iters)]
+        else:
+            noise = list(noise)
+        args = (mesh_idx, R0, t0, sig0, obs, noise)
+        return self.graph(*args) if occ is None else self.graph(*args, occ)
+
+
+def fused_cem_executor(mrenderer, tau, iters, samples, n_elite, roi,
+                       occ_mode, radius=2):
+    """The fused CEM (`_cem_fused_body`) of one schedule as a captured CUDA
+    graph replayed once a call (a `utils.graphs.CallGraph` on the
+    renderer's mesh stack, keyed further by the number of objects and the
+    device; on the CPU its buffers without capture). Cached on the
+    renderer keyed by every static knob, as the reference's executor
+    (visma_tpu/semantic/cem.py:508-551), and dropped with the mesh stack.
+    occ_mode: "poses" (in-window occluder renders; requires roi),
+    "depths" (precomputed occluder z-buffers) or "none"."""
+    if occ_mode not in OCC_MODES:
+        raise ValueError(f"fused_cem_executor: occ_mode {occ_mode!r} is "
+                         f"not one of {OCC_MODES}")
+    if occ_mode == "poses" and roi is None:
+        raise ValueError("fused_cem_executor: occ_mode 'poses' requires roi")
+    cache = mrenderer.__dict__.setdefault("_cem_exec_cache", {})
+    k = (tau, iters, samples, n_elite, roi, occ_mode, radius)
+    if k not in cache:
+        cache[k] = _CemExecutor(mrenderer, tau, iters, samples, n_elite,
+                                roi, occ_mode, radius)
+    return cache[k]
+
+
+def _cem_run(mrenderer, graphed, mesh_idx, R0, t0, sig0, occ, obs,
+             generator, tau, iters, samples, n_elite, roi, occ_poses, radius,
+             noise=None):
+    """The fused CEM on the renderer's mesh stack, through its executor's
+    graph when `graphed`, else the eager body; arguments as
+    `_cem_fused_body`'s."""
+    if not graphed:
+        return _cem_fused_body(
+            mrenderer.Cs, mesh_idx, R0, t0, sig0, occ, obs, generator,
+            mrenderer.intr, tau, iters, samples, n_elite, roi=roi,
+            occ_poses=occ_poses, radius=radius, noise=noise)
+    mode = ("poses" if occ_poses is not None
+            else "depths" if occ is not None else "none")
+    run = fused_cem_executor(mrenderer, tau, iters, samples, n_elite, roi,
+                             mode, radius)
+    return run(mesh_idx, R0, t0, sig0, obs,
+               occ=occ_poses if occ_poses is not None else occ,
+               generator=generator, noise=noise)
+
+
 def _clip_roi(roi, intr):
     """A window no larger than the frame; None when it is the frame."""
     if roi is None:
@@ -357,7 +471,7 @@ def refine_pose_cem_batched(mrenderer, observed_edges,
                             roi: Optional[Tuple[int, int]] = None,
                             occluder_poses=None, radius: int = 2,
                             noise: Optional[torch.Tensor] = None,
-                            device=None):
+                            device=None, graph: Optional[bool] = None):
     """Jointly refine n (3,4)/(4,4) model->camera poses of n objects.
 
     mrenderer: MultiMeshRenderer with the mesh database set; mesh_idx (n,)
@@ -375,6 +489,10 @@ def refine_pose_cem_batched(mrenderer, observed_edges,
     noise: optional (iters, n, samples, 6) standard-normal draws for the
     device loop. device: where to run, which must be where the renderer
     holds its meshes; None means the CUDA card, and raises without one.
+    graph: how the device loop runs, as `utils.graphs.wants_graph` reads
+    it: None replays `fused_cem_executor`'s graph on a CUDA device and
+    runs the eager body on the CPU; True or False asks for the executor or
+    the eager body.
     Returns (poses (n,3,4), scores (n,))."""
     dev = resolve_device(device)
     if dev.type != mrenderer.device.type:
@@ -405,11 +523,11 @@ def refine_pose_cem_batched(mrenderer, observed_edges,
         if noise is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-        return _cem_fused_body(
-            mrenderer.Cs, mi, poses0[:, :, :3].contiguous(),
-            poses0[:, :, 3].contiguous(), f32(_sigma6(init_sigma, n)), occ,
-            obs, gen, intr, tau, iters, samples, n_elite, roi=roi,
-            occ_poses=occ_poses, radius=radius, noise=noise)
+        return _cem_run(
+            mrenderer, wants_graph(graph, dev), mi,
+            poses0[:, :, :3].contiguous(), poses0[:, :, 3].contiguous(),
+            f32(_sigma6(init_sigma, n)), occ, obs, gen, tau, iters, samples,
+            n_elite, roi, occ_poses, radius, noise)
 
     dt = edge_distance_transform(obs)
     rng = np.random.default_rng(seed)

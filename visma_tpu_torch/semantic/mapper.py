@@ -21,6 +21,13 @@ host arithmetic in numpy; render, score and refit run on the device. Once
 all tracks are settled, the poses stay on the device from frame to frame
 (see `async_frames`): a settled step enqueues its work and reads nothing
 back.
+
+Compiled run: on a CUDA device the CEM of a frame, a detection's
+retrieval and the full-frame occluder render each replay one captured
+CUDA graph (`cem.fused_cem_executor`, `cem.retrieval_executor`,
+`exclusive_min_executor`: the reference's jitted executors), captured by
+`warmup` or on the first call of a new shape; `graph=False` runs them
+eagerly.
 """
 from __future__ import annotations
 
@@ -36,12 +43,15 @@ from torch.profiler import record_function
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
                                                occlusion_aware_edge_score)
-from visma_tpu_torch.render.raster import (MultiMeshRenderer,
+from visma_tpu_torch.render.raster import (EXECUTOR_CACHES,
+                                           MultiMeshRenderer,
                                            rasterize_depth_chunked_multi)
-from visma_tpu_torch.semantic.cem import (CEM_TAU, _cem_fused_body, _sigma6,
+from visma_tpu_torch.semantic.cem import (CEM_TAU, _cem_run, _sigma6,
                                           cem_n_elite,
                                           refine_pose_cem_batched,
+                                          retrieval_executor,
                                           retrieval_scores)
+from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 from visma_tpu_torch.utils.misc import resolve_device
 
 
@@ -74,9 +84,13 @@ class SemanticMapper:
                  async_frames: int = 0,
                  coverage_radius: int = 2,
                  roi_spawn: bool = False,
-                 device=None):
+                 device=None, graph: Optional[bool] = None):
         """mesh_db: model_name -> (V, F). device: where render, score and
         refit run; None means the CUDA card, and raises without one.
+        graph: None replays the executors' CUDA graphs on a CUDA device
+        and runs eagerly on the CPU; True or False asks for the executors
+        (on the CPU their buffers, without capture) or the eager functions
+        (`utils.graphs.wants_graph`).
 
         retrieval_yaws / azimuth_prior_weight control detection-driven
         shape retrieval (see retrieve_shape). roi: optional (Hr, Wr)
@@ -108,6 +122,7 @@ class SemanticMapper:
         (write_result_json does) before reading poses."""
         self.intr = intr
         self.device = resolve_device(device)
+        self.graphed = wants_graph(graph, self.device)
         self.mesh_db = mesh_db
         self.depth_prior = depth_prior
         self.cem_iters = cem_iters
@@ -139,6 +154,7 @@ class SemanticMapper:
         self._dev: Optional[dict] = None   # device-resident track state
         self._frame_no = 0
         self._pinned: Optional[torch.Tensor] = None
+        self._gen: Optional[torch.Generator] = None   # the async steps'
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -158,12 +174,16 @@ class SemanticMapper:
         return slot.to(self.device, non_blocking=True)
 
     def warmup(self, n_objects: int) -> float:
-        """Build and load the kernels, and run every schedule of an
-        `n_objects` scene once on an empty edge map (with occluders, in the
-        window when one is set), so that the first real frame pays no
-        set-up. Returns elapsed seconds. (PyTorch runs eagerly: there are
-        no per-schedule executors to compile, as the reference's warmup
-        did.)"""
+        """Build and load the kernels and make every executor of an
+        `n_objects` scene ready, as the reference's warmup compiles them
+        (visma_tpu/semantic/mapper.py:132-197): the CEM of both schedules
+        in the window with occluders rendered from poses, and, in the
+        window, the retrieval of one detection over the whole database x
+        retrieval_yaws. Graphed (see `graph`), each executor runs its
+        eager warm-up calls and is captured, so the first real frames
+        replay; eagerly, each runs once on an empty edge map. Returns
+        elapsed seconds; `captures` and `capture_ms` say what was
+        captured."""
         t0 = time.time()
         n = int(n_objects)
         if self.device.type == "cuda":
@@ -172,6 +192,7 @@ class SemanticMapper:
             _kernels.library()
         if not self.mesh_db or n < 1:
             return time.time() - t0
+        calls = CallGraph.warmup + 1 if self.graphed else 1
         poses = np.tile(np.eye(4, dtype=np.float32)[None, :3], (n, 1, 1))
         poses[:, 2, 3] = self.depth_prior
         poses[:, 0, 3] = 0.1 * np.arange(n)
@@ -182,15 +203,48 @@ class SemanticMapper:
             scheds.append((self.settled_iters, self.settled_samples,
                            self.settled_sigma or self.init_sigma))
         for iters, samples, sigma in scheds:
-            refine_pose_cem_batched(
-                self.mrenderer, edge, poses, np.zeros(n, np.int32),
-                iters=iters, samples=samples, init_sigma=sigma,
-                roi=self.roi,
-                occluder_poses=poses if self.roi is not None else None,
-                radius=self.coverage_radius, device=self.device)
+            for _ in range(calls):
+                refine_pose_cem_batched(
+                    self.mrenderer, edge, poses, np.zeros(n, np.int32),
+                    iters=iters, samples=samples, init_sigma=sigma,
+                    roi=self.roi,
+                    occluder_poses=poses if self.roi is not None else None,
+                    radius=self.coverage_radius, device=self.device,
+                    graph=self.graphed)
+        if self.roi is not None:
+            # retrieve_shape's window branch
+            roi = self.roi
+            B = len(self.mesh_db) * self.retrieval_yaws
+            hyps = self._f32(np.tile(poses[:1], (B, 1, 1)))
+            mi = torch.zeros(B, dtype=torch.int64, device=self.device)
+            org = torch.zeros(2, dtype=torch.float32, device=self.device)
+            box = self._f32([0, 0, roi[1], roi[0]])
+            run = (retrieval_executor(self.mrenderer, roi, B) if self.graphed
+                   else lambda *a: retrieval_scores(self.mrenderer, roi, *a))
+            for _ in range(calls):
+                run(hyps, mi, org, edge, edge, box)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
+
+    def graphs(self) -> dict:
+        """The executors' runners on this mapper's renderer
+        (`utils.graphs.CallGraph`), by (cache, key)."""
+        out = {}
+        for cache in EXECUTOR_CACHES:
+            for k, run in self.mrenderer.__dict__.get(cache, {}).items():
+                out[cache, k] = getattr(run, "graph", run)
+        return out
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured for this mapper's executors."""
+        return sum(g.captures for g in self.graphs().values())
+
+    @property
+    def capture_ms(self) -> List[float]:
+        """Host ms of each capture, executor by executor."""
+        return [ms for g in self.graphs().values() for ms in g.capture_ms]
 
     def _init_pose_cm(self, bbox, model_name: Optional[str] = None
                       ) -> np.ndarray:
@@ -329,9 +383,12 @@ class SemanticMapper:
             cy = 0.5 * (bbox.top_left_y + bbox.bottom_right_y)
             ox = float(np.clip(round(cx - Wr / 2), 0, W - Wr))
             oy = float(np.clip(round(cy - Hr / 2), 0, H - Hr))
-            dev_scores = retrieval_scores(
-                self.mrenderer, (Hr, Wr), hyps_d, mi, self._f32([ox, oy]),
-                dt, em, self._f32([x0, y0, x1, y1]))
+            args = (hyps_d, mi, self._f32([ox, oy]), dt, em,
+                    self._f32([x0, y0, x1, y1]))
+            dev_scores = (
+                retrieval_executor(self.mrenderer, (Hr, Wr), len(hyps))(*args)
+                if self.graphed
+                else retrieval_scores(self.mrenderer, (Hr, Wr), *args))
         else:
             # one full-frame pass over all (mesh, yaw) hypotheses
             box_mask = np.zeros((H, W), np.float32)
@@ -463,10 +520,12 @@ class SemanticMapper:
         elif need_occ:
             # full-frame mode (fresh spawns): all current depths + the
             # per-track exclusive min over the others
-            occ = _exclusive_min_depths(
-                self.mrenderer.Cs, self._f32(poses_cm),
-                torch.as_tensor(mesh_idx, device=self.device),
-                self.mrenderer.intr)
+            args = (self._f32(poses_cm),
+                    torch.as_tensor(mesh_idx, device=self.device))
+            occ = (exclusive_min_executor(self.mrenderer)(*args)
+                   if self.graphed else
+                   _exclusive_min_depths(self.mrenderer.Cs, *args,
+                                         self.mrenderer.intr))
         # disjoint screen footprints: no occluder work at all
 
         refined_dev, scores_dev = refine_pose_cem_batched(
@@ -474,7 +533,8 @@ class SemanticMapper:
             iters=iters, samples=samples, init_sigma=sigma,
             seed=min(tr.age for tr in tracks),
             occluder_depths=occ, roi=roi, occluder_poses=occ_poses,
-            radius=self.coverage_radius, device=self.device)
+            radius=self.coverage_radius, device=self.device,
+            graph=self.graphed)
         refined = refined_dev.cpu().numpy()
         scores = scores_dev.cpu().numpy()
         for i, tr in enumerate(tracks):
@@ -511,14 +571,16 @@ class SemanticMapper:
         sig_key = ("sig", sigma, n)
         if dev.get(sig_key) is None:
             dev[sig_key] = self._f32(_sigma6(sigma, n))
-        gen = torch.Generator(device=self.device)
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        gen = self._gen
         gen.manual_seed(self._frame_no)
-        refined_dev, scores_dev = _cem_fused_body(
-            self.mrenderer.Cs, dev["mi"], poses_dev[:, :, :3].contiguous(),
-            poses_dev[:, :, 3].contiguous(), dev[sig_key], None, edge_map,
-            gen, self.intr, CEM_TAU, iters, samples, cem_n_elite(samples),
-            roi=roi, occ_poses=poses_dev if need_occ else None,
-            radius=self.coverage_radius)
+        refined_dev, scores_dev = _cem_run(
+            self.mrenderer, self.graphed, dev["mi"],
+            poses_dev[:, :, :3].contiguous(), poses_dev[:, :, 3].contiguous(),
+            dev[sig_key], None, edge_map, gen, CEM_TAU, iters, samples,
+            cem_n_elite(samples), roi, poses_dev if need_occ else None,
+            self.coverage_radius)
 
         dev.update(poses=refined_dev, G=G.copy(), scores=scores_dev,
                    pending=dev["pending"] + 1)
@@ -676,3 +738,19 @@ def _exclusive_min_depths(Cs, poses, mesh_idx, intr) -> torch.Tensor:
     other = ~torch.eye(n, dtype=torch.bool, device=d.device)
     inf = torch.full_like(d[None], float("inf"))
     return torch.where(other[:, :, None, None], d[None], inf).amin(dim=1)
+
+
+def exclusive_min_executor(mrenderer) -> CallGraph:
+    """`_exclusive_min_depths` on the renderer's mesh stack as a captured
+    CUDA graph replayed once a call, keyed by the number of tracks (a
+    `utils.graphs.CallGraph`; on the CPU its buffers without capture), the
+    counterpart of the reference's `_exclusive_min_depths_jit`
+    (visma_tpu/semantic/mapper.py:760-785). Called with (poses (n,3,4),
+    mesh_idx (n,)); cached on the renderer and dropped with its stack."""
+    cache = mrenderer.__dict__.setdefault("_occ_exec_cache", {})
+    if "min_depths" not in cache:
+        Cs, intr = mrenderer.Cs, mrenderer.intr
+        cache["min_depths"] = CallGraph(
+            lambda poses, mesh_idx: _exclusive_min_depths(Cs, poses,
+                                                          mesh_idx, intr))
+    return cache["min_depths"]

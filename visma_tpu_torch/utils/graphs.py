@@ -1,7 +1,10 @@
-"""Sequence runners over a functional step: one captured CUDA graph
-replayed once a frame, the port's counterpart of the reference's `jax.jit`
-+ `lax.scan` over a sequence (visma_tpu/pipeline.py:84-116,
-visma_tpu/filter/msckf.py:254-305).
+"""Captured CUDA graphs, the port's counterpart of the reference's
+`jax.jit`: `StepGraph` replays a step once a frame over a sequence (jit +
+`lax.scan`, visma_tpu/pipeline.py:84-116,
+visma_tpu/filter/msckf.py:254-305), `CallGraph` replays a whole function
+once a call (the reference's jitted executors,
+visma_tpu/semantic/cem.py:329-372, :508-551,
+visma_tpu/semantic/mapper.py:760-785).
 
 A step is `body(state, x) -> (state, out)` over pytrees of tensors (the
 port's states are registered pytree nodes). `run_eager` loops it over the
@@ -33,6 +36,16 @@ the same through static buffers:
     them: the launches a capture records (`_kernels.launch_counts`) are
     taken back out of the counters and added once a replay;
   * on the CPU the same copy-in / step / copy-out runs with no capture.
+
+`CallGraph(fn)(*inputs)` is the same machinery for `fn(*inputs) ->
+outputs`: the inputs are copied into buffers made once per shapes, dtypes
+and devices of the inputs; on a CUDA device `warmup` eager calls on a side
+stream come first, then one capture, and each later call is one replay.
+The outputs are cloned out of the graph's memory on every call: a replay
+writes the same addresses again, so a caller that kept the last call's
+outputs would see them change. On the CPU the call runs on the buffers
+without capture and its outputs pass through static output buffers too,
+so that a caller's aliasing shows there as well.
 """
 from __future__ import annotations
 
@@ -109,16 +122,84 @@ class _Entry:
     launches: Optional[dict] = None       # kernel launches a replay makes
 
 
-class StepGraph:
+class _Captures:
+    """What the two runners share: the side stream of a run shape's
+    warm-ups and capture, the capture itself, and its record."""
+
+    def __init__(self):
+        self.captures = 0            # graphs captured by this runner
+        self.capture_ms = []         # host ms of each capture
+        self.pool_bytes = []         # device memory each capture reserved
+
+    @staticmethod
+    def _side_stream(device: torch.device):
+        """The stream of a run shape's warm-ups and capture; None on the
+        CPU, where nothing is captured."""
+        return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def _capture(self, stream, fn: Callable):
+        """`fn()` captured on `stream` into a new CUDA graph, in its own
+        memory pool, without making the host wait. Returns (graph, what
+        fn returned, the launches a replay makes). Raises
+        `GraphCaptureError` naming the line that failed."""
+        cur = torch.cuda.current_stream(stream.device)
+        on_card = stream.device.type == "cuda"
+        reserved = torch.cuda.memory_reserved(stream.device) if on_card else 0
+        graph = torch.cuda.CUDAGraph()
+        before = _kernels.launch_counts()
+        stream.wait_stream(cur)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                out = fn()
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass      # the capture was invalidated by `exc`
+                raise GraphCaptureError(
+                    f"CUDA graph capture failed at {_failed_at(exc)}: "
+                    f"{type(exc).__name__}: {exc}") from exc
+            finally:
+                # what the Python counted launched nothing yet
+                launches = _kernels.take_back_launches(before)
+            try:
+                graph.capture_end()
+            except RuntimeError as exc:
+                raise GraphCaptureError(
+                    f"CUDA graph capture failed at its end: {exc}") from exc
+        cur.wait_stream(stream)
+        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        self.pool_bytes.append(
+            torch.cuda.memory_reserved(stream.device) - reserved
+            if on_card else 0)
+        self.captures += 1
+        return graph, out, launches
+
+    @staticmethod
+    def _on_side(stream, fn: Callable):
+        """fn() without capture: on the CPU as it is, on CUDA on the side
+        stream, ordered after the copies in and before the copies out."""
+        if stream is None:
+            return fn()
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
+        return out
+
+
+class StepGraph(_Captures):
     """`body` run over a sequence through static buffers, captured once a
     run shape into a CUDA graph on a CUDA device (see the module)."""
 
     warmup = 2           # eager frames before a run shape's capture
 
     def __init__(self, body: Callable):
+        super().__init__()
         self.body = body
-        self.captures = 0            # graphs captured by this runner
-        self.capture_ms = []         # host ms of each capture
         self._entries = {}
 
     def run(self, state, xs):
@@ -150,7 +231,9 @@ class StepGraph:
             if entry.graph is None and entry.stream is not None \
                     and entry.warm >= self.warmup:
                 try:
-                    self._capture(entry)
+                    entry.graph, (entry.outputs, entry.out_spec), \
+                        entry.launches = self._capture(
+                            entry.stream, lambda: self._step(entry))
                 except GraphCaptureError:
                     del self._entries[key]
                     raise
@@ -159,7 +242,9 @@ class StepGraph:
                 _kernels.add_launches(entry.launches)
                 outs, out_spec = entry.outputs, entry.out_spec
             else:
-                outs, out_spec = self._eager(entry)
+                entry.warm += 1
+                outs, out_spec = self._on_side(entry.stream,
+                                               lambda: self._step(entry))
             if record is None:
                 record = [torch.empty((n, *t.shape), dtype=t.dtype,
                                       device=t.device) for t in outs]
@@ -168,12 +253,6 @@ class StepGraph:
         final = pytree.tree_unflatten([b.clone() for b in entry.state],
                                       entry.s_spec)
         return final, pytree.tree_unflatten(record, out_spec)
-
-    @staticmethod
-    def _side_stream(device: torch.device):
-        """The stream of a run shape's warm-ups and capture; None on the
-        CPU, where nothing is captured."""
-        return torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def _step(self, entry: _Entry):
         """One step on the static buffers: the body, then its new state
@@ -199,47 +278,70 @@ class StepGraph:
                 b.copy_(t)
         return out_leaves, out_spec
 
-    def _eager(self, entry: _Entry):
-        """A step without capture: on the CPU as it is, on CUDA on the side
-        stream, ordered after the copies in and before the copies out."""
-        entry.warm += 1
-        if entry.stream is None:
-            return self._step(entry)
-        cur = torch.cuda.current_stream(entry.stream.device)
-        entry.stream.wait_stream(cur)
-        with torch.cuda.stream(entry.stream):
-            outs = self._step(entry)
-        cur.wait_stream(entry.stream)
-        return outs
 
-    def _capture(self, entry: _Entry) -> None:
-        cur = torch.cuda.current_stream(entry.stream.device)
-        graph = torch.cuda.CUDAGraph()
-        before = _kernels.launch_counts()
-        entry.stream.wait_stream(cur)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(entry.stream):
-            graph.capture_begin()
+@dataclass
+class _CallEntry:
+    """The buffers, and once captured the graph, of one input shape."""
+    spec: object
+    inputs: list                 # static buffers of the inputs
+    stream: Optional[torch.cuda.Stream]   # warm-ups and capture (CUDA)
+    warm: int = 0                # eager calls made on these buffers
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    outputs: Optional[list] = None        # static outputs (see the module)
+    out_spec: object = None
+    launches: Optional[dict] = None       # kernel launches a replay makes
+
+
+class CallGraph(_Captures):
+    """`fn(*inputs)` through static buffers, captured once per input shape
+    into a CUDA graph on a CUDA device and replayed once a call (see the
+    module). `fn` returns a tensor or a pytree of tensors."""
+
+    warmup = 1           # eager calls before an input shape's capture
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+        self._entries = {}
+
+    def __call__(self, *inputs):
+        leaves, spec = pytree.tree_flatten(inputs)
+        key = (str(spec), _signature(leaves))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _CallEntry(
+                spec=spec,
+                inputs=[torch.empty_like(t,
+                                         memory_format=torch.contiguous_format)
+                        for t in leaves],
+                stream=self._side_stream(leaves[0].device))
+        for b, t in zip(entry.inputs, leaves):
+            b.copy_(t)
+        if entry.graph is None and entry.stream is not None \
+                and entry.warm >= self.warmup:
             try:
-                outs, out_spec = self._step(entry)
-            except Exception as exc:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass      # the capture was invalidated by `exc`
-                raise GraphCaptureError(
-                    f"CUDA graph capture failed at {_failed_at(exc)}: "
-                    f"{type(exc).__name__}: {exc}") from exc
-            finally:
-                # what the body's Python counted launched nothing yet
-                launches = _kernels.take_back_launches(before)
-            try:
-                graph.capture_end()
-            except RuntimeError as exc:
-                raise GraphCaptureError(
-                    f"CUDA graph capture failed at its end: {exc}") from exc
-        cur.wait_stream(entry.stream)
-        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
-        self.captures += 1
-        entry.graph, entry.outputs, entry.out_spec = graph, outs, out_spec
-        entry.launches = launches
+                entry.graph, (entry.outputs, entry.out_spec), \
+                    entry.launches = self._capture(
+                        entry.stream, lambda: self._call(entry))
+            except GraphCaptureError:
+                del self._entries[key]
+                raise
+        if entry.graph is not None:
+            entry.graph.replay()
+            _kernels.add_launches(entry.launches)
+        else:
+            entry.warm += 1
+            outs, out_spec = self._on_side(entry.stream,
+                                           lambda: self._call(entry))
+            if entry.outputs is None:
+                entry.outputs = [torch.empty_like(t) for t in outs]
+                entry.out_spec = out_spec
+            for b, t in zip(entry.outputs, outs):
+                b.copy_(t)
+        return pytree.tree_unflatten([t.clone() for t in entry.outputs],
+                                     entry.out_spec)
+
+    def _call(self, entry: _CallEntry):
+        """fn on the static input buffers. Returns (output leaves, spec)."""
+        return pytree.tree_flatten(
+            self.fn(*pytree.tree_unflatten(entry.inputs, entry.spec)))

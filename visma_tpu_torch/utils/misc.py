@@ -60,7 +60,7 @@ def with_blocks(base: torch.Tensor, blocks) -> torch.Tensor:
 def device_constant(fn):
     """`fn` cached per arguments for the life of the process: a constant
     tensor made once per shape and device. It is never evicted, because a
-    captured CUDA graph (`utils.graphs.StepGraph`) reads it by address on
+    captured CUDA graph (`utils.graphs`) reads it by address on
     every replay: a bounded cache would free it, and the allocator would
     hand its memory to other tensors while the graph still reads it."""
     return functools.lru_cache(maxsize=None)(fn)
