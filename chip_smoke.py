@@ -133,6 +133,7 @@ kernel may read faster than its bound. Prints the card, the kernel table as
 one JSON line and, last, {"ok": true, "device": {...}}.
 Exits non-zero on any failure, and without a CUDA device.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -362,6 +363,110 @@ def timed_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def solver_graphs():
+    """Every graph runner the refinement solvers have cached so far:
+    [(label, runner)] (the mesh solvers' keyed by their mesh)."""
+    from visma_tpu_torch.ba import gauss_newton, pose_graph
+    from visma_tpu_torch.dist import sharded_ba
+
+    out = [("ba_step", gauss_newton._STEP), ("ba_solve", gauss_newton._RUN)]
+    out += [(f"pose_graph damping {k}", r)
+            for k, r in pose_graph._RUNS.items()]
+    out += [(" ".join(map(str, key[1:])), r)
+            for key, r in sharded_ba._RUNS.items()]
+    out += [("sharded_ba_step", r) for r in sharded_ba._STEPS.values()]
+    return out
+
+
+def captures_since(before):
+    """The captures the solvers' runners made since `before` (a
+    `solver_graphs()` snapshot of (runner, captures)): [(label, capture
+    ms, pool MB)]."""
+    seen = {id(r): n for r, n in before}
+    return [(label, ms, mb / 2 ** 20)
+            for label, r in solver_graphs()
+            for ms, mb in list(zip(r.capture_ms, r.pool_bytes))[
+                seen.get(id(r), 0):]]
+
+
+def graph_turns(call, steps, spread=False, sync_call=None):
+    """`call(graph)` in turns graph / eager / graph / eager in one
+    process, each on the host clock around synchronised calls; then one
+    more graphed call (`sync_call()` instead, where given) with its host
+    synchronisations counted. Returns ms a GN step of each turn, the
+    first graphed call's captures (label, capture ms, pool MB), the
+    captures of the later calls (none), the synchronisations, and the
+    outputs; checks graph against eager bit for bit, or, with `spread`,
+    within the two eager runs' own spread."""
+    import torch
+
+    res = {"ms_per_step": {"graph": [], "eager": []}, "later_captures": []}
+    outs = {"graph": [], "eager": []}
+    for i, mode in enumerate(("graph", "eager", "graph", "eager")):
+        before = [(r, r.captures) for _, r in solver_graphs()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[mode].append(call(mode == "graph"))
+        torch.cuda.synchronize()
+        res["ms_per_step"][mode].append((time.perf_counter() - t0) * 1e3
+                                        / steps)
+        new = captures_since(before)
+        if i == 0:
+            res["captures"] = new
+        else:
+            res["later_captures"] += new
+    before = [(r, r.captures) for _, r in solver_graphs()]
+    res["syncs"] = sync_counter(sync_call or (lambda: call(True)))
+    res["later_captures"] += captures_since(before)
+    check(not res["later_captures"],
+          f"captures after the first graphed call: {res['later_captures']}")
+    check(res["syncs"] == 0, f"{res['syncs']} host synchronisations in a "
+          "graphed solve after its capture")
+    g, e = outs["graph"], outs["eager"]
+    from torch.utils._pytree import tree_flatten
+
+    if tree_flatten(g[0])[0][0].is_cuda:
+        check(res["captures"], "the first graphed call captured nothing")
+    check(not unequal_leaves(g[0], g[1]) or spread,
+          f"two graphed calls differ: {unequal_leaves(g[0], g[1])}")
+    if spread:
+        def dist(a, b):
+            return max(float((x.float() - y.float()).abs().max())
+                       for x, y in zip(tree_flatten(a)[0],
+                                       tree_flatten(b)[0]))
+
+        res["eager_spread"] = dist(e[0], e[1])
+        res["graph_vs_eager"] = max(dist(a, b) for a in g for b in e)
+        check(res["graph_vs_eager"] <= res["eager_spread"],
+              f"graph against eager {res['graph_vs_eager']} past the eager "
+              f"runs' own spread {res['eager_spread']}")
+    else:
+        for a in g:
+            for b in e:
+                bad = unequal_leaves(a, b)
+                check(not bad, f"graph != eager: {bad} differ")
+    res["outputs"] = g[0]
+    return res
+
+
+def turns_line(t):
+    """One line of a `graph_turns` result: ms a GN step in turns, the
+    first graphed call's captures, the synchronisations."""
+    ms = t["ms_per_step"]
+    caps = ", ".join(f"{label} {c_ms:.1f} ms / {mb:.0f} MB"
+                     for label, c_ms, mb in t["captures"]) or "none"
+    return (f"ms a GN step graph / eager / graph / eager {ms['graph'][0]:.3f}"
+            f" / {ms['eager'][0]:.3f} / {ms['graph'][1]:.3f} / "
+            f"{ms['eager'][1]:.3f}; first graphed call's captures: {caps}; "
+            f"none later; {t['syncs']} host synchronisations in a graphed "
+            "solve after its capture")
+
+
+def turns_record(t):
+    """A `graph_turns` result without its outputs, for the JSON line."""
+    return {k: v for k, v in t.items() if k != "outputs"}
 
 
 def graph_ms(fn, reps=20, replays=5):
@@ -2251,13 +2356,17 @@ def slam_phase(dev, scene, direct_ate, card):
 
 
 def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
-                 step=True):
+                 step=True, profile=False):
     """`synthetic_ba_problem(num_poses, num_landmarks, 0.5, 0.02)` on `dev`:
     with `step`, one GN step at damping 1e-3 with the scale anchor held to
-    the port's CPU step on the same problem (max |dp| < 2e-4); then
-    `ba_solve(iters)`, its final cost within 1e-3 relative of `ref_cost`
-    (the JAX package's) and, given `ref_p`, its positions within 2e-2 m of
-    the JAX package's. Times by CUDA events. Returns the numbers."""
+    the port's CPU step on the same problem (max |dp| < 2e-4), and the step
+    through its CallGraph in turns with the eager step (`graph_turns`);
+    then `ba_solve(iters)` in turns graphed / eager, its final cost within
+    1e-3 relative of `ref_cost` (the JAX package's) and, given `ref_p`, its
+    positions within 2e-2 m of the JAX package's. Times by CUDA events
+    (the graphed step and solve) and the turns' host clock; with
+    `profile`, the device busy ms and idle share of one graphed and one
+    eager solve. Returns the numbers."""
     import numpy as np
     import torch
 
@@ -2280,9 +2389,16 @@ def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
         check(out["step_max_dp_m"] < BA_STEP_TOL_M,
               f"ba_step on {dev} != the CPU step: max |dp| "
               f"{out['step_max_dp_m']}")
+        # the gate's call was the CallGraph's eager warm-up: the turns'
+        # first graphed call captures
+        out["step_turns"] = turns_record(graph_turns(
+            lambda g: ba_step(prob, 1e-3, a_dev, graph=g), 1))
         out["step_ms"] = cuda_ms(lambda: ba_step(prob, 1e-3, a_dev), reps=5,
                                  warmup=1)
-    sol, hist = ba_solve(prob, iters=iters)
+    turns = graph_turns(lambda g: ba_solve(prob, iters=iters, graph=g),
+                        iters)
+    sol, hist = turns["outputs"]
+    out["solve_turns"] = turns_record(turns)
     cost = float(total_cost(sol))
     out["cost"], out["cost_ref"] = cost, ref_cost
     out["cost_rel"] = (cost - ref_cost) / ref_cost
@@ -2298,6 +2414,27 @@ def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
     out["solve_ms"] = cuda_ms(lambda: ba_solve(prob, iters=iters), reps=3,
                               warmup=1)
     out["ms_per_gn_step"] = out["solve_ms"] / iters
+    if profile:
+        from torch.autograd import DeviceType
+
+        for mode in ("graph", "eager"):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                ba_solve(prob, iters=iters, graph=mode == "graph")
+                torch.cuda.synchronize()
+            busy, _ = device_busy_ms(prof)
+            check(busy is not None, "the profiler saw no device work")
+            host = min(turns["ms_per_step"][mode]) * iters
+            out[f"{mode}_device_busy_ms"] = busy
+            out[f"{mode}_idle_share"] = 1.0 - busy / host
+            ops = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            out[f"{mode}_device_ops"] = sum(e.count for e in ops)
+            # where a GN step's device time goes: the largest ops
+            out[f"{mode}_top_ms_per_step"] = [
+                (e.key[:60], e.self_device_time_total / 1e3 / iters)
+                for e in sorted(ops, key=lambda e: -e.self_device_time_total)
+                [:6]]
     return out
 
 
@@ -2307,7 +2444,8 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
     0 just before, read just after), then the trajectory refinement of
     `run_vio --ba dense`: `ba_problem_from_vio` from the tracker's own
     observations and the filter's poses, `ba_solve`, `refine_trajectory`.
-    Gates: ATE of the refined trajectory < 2.5 x the filter's + 5 mm
+    The solve runs in turns graphed / eager (`graph_turns`). Gates: ATE of
+    the refined trajectory < 2.5 x the filter's + 5 mm
     (tests/test_ba_from_vio.py:150), rotations orthonormal to 1e-4.
     Returns (launches, numbers)."""
     import numpy as np
@@ -2346,7 +2484,9 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
     assembly_ms = (time.time() - t0) * 1e3
     check(prob is not None, "VIO -> BA: too few landmarks")
     cost0 = float(total_cost(prob))
-    sol, hist = ba_solve(prob, iters=iters)
+    turns = graph_turns(lambda g: ba_solve(prob, iters=iters, graph=g),
+                        iters)
+    sol, hist = turns["outputs"]
     solve_ms = cuda_ms(lambda: ba_solve(prob, iters=iters), reps=3, warmup=1)
     R_ba, p_ba = refine_trajectory(sol, info, R_est, p_est, cfg.cam_R_bc,
                                    cfg.cam_p_bc)
@@ -2360,7 +2500,8 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
            "cost": float(hist[-1]), "ate_filter_m": ate(p_est),
            "ate_ba_m": ate(p_ba),
            "orthonormal_err": float(np.abs(
-               np.einsum("nij,nkj->nik", R_ba, R_ba) - np.eye(3)).max())}
+               np.einsum("nij,nkj->nik", R_ba, R_ba) - np.eye(3)).max()),
+           "solve_turns": turns_record(turns)}
     check(np.isfinite(p_ba).all(), "VIO -> BA: non-finite trajectory")
     check(res["cost"] < cost0, "VIO -> BA: the cost did not go down")
     check(res["ate_ba_m"] < 2.5 * res["ate_filter_m"] + 0.005,
@@ -2399,11 +2540,62 @@ def ba_cli(root, device_args=()):
     return report
 
 
+@contextlib.contextmanager
+def solves_timed(graph, record):
+    """`ba.gauss_newton.ba_solve` with `graph` fixed inside the block (the
+    CLI takes the default and has no flag for it), the host ms of each
+    call around synchronised calls appended to `record`."""
+    import torch
+
+    from visma_tpu_torch.ba import gauss_newton
+
+    solve = gauss_newton.ba_solve
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve(*args, graph=graph, **kw)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    gauss_newton.ba_solve = timed
+    try:
+        yield
+    finally:
+        gauss_newton.ba_solve = solve
+
+
+def ba_cli_turns(dev, device_args=()):
+    """`ba_cli` in turns graph / eager / graph / eager: the reports equal,
+    the solve's host ms in each (the first graphed one pays its warm-up
+    steps and its capture: the CLI solves once) and the captures of the
+    first graphed call. Returns (the first report, the numbers)."""
+    import tempfile
+
+    reports, ms = [], {"graph": [], "eager": []}
+    caps = []
+    for mode in ("graph", "eager", "graph", "eager"):
+        before = [(r, r.captures) for _, r in solver_graphs()]
+        with tempfile.TemporaryDirectory() as root, \
+                solves_timed(mode == "graph", ms[mode]):
+            reports.append(ba_cli(root, device_args))
+        caps.append(captures_since(before))
+    for r in reports[1:]:
+        check(r == reports[0], f"run_vio --ba dense graph / eager reports "
+              f"differ: {r} / {reports[0]}")
+    check(len(caps[0]) == int(dev.type == "cuda") and not any(caps[1:]),
+          f"run_vio --ba dense captures {caps}")
+    return reports[0], {"solve_ms": ms, "captures": caps[0]}
+
+
 def pose_graph_circle(dev, K=POSE_GRAPH_NODES, iters=POSE_GRAPH_ITERS):
     """tests/test_ba.py:70-115 on `dev`: K poses on a circle, a drifting
     odometry chain as the estimate, exact odometry edges and one loop
     closure. Gates: max position error < 0.02 m and < a quarter of the
-    drift. Returns the numbers."""
+    drift. The solve runs in turns graphed / eager (`graph_turns`), held to
+    the two eager runs' own spread (its sums accumulate by index). Returns
+    the numbers."""
     import numpy as np
     import torch
     from scipy.spatial.transform import Rotation
@@ -2434,14 +2626,17 @@ def pose_graph_circle(dev, K=POSE_GRAPH_NODES, iters=POSE_GRAPH_ITERS):
             torch.as_tensor(ej, dtype=torch.int32, device=dev),
             f32([R_gt[i].T @ R_gt[j] for i, j in zip(ei, ej)]),
             f32([R_gt[i].T @ (p_gt[j] - p_gt[i]) for i, j in zip(ei, ej)]))
-    _, p_opt = pose_graph_solve(*args, iters=iters)
+    turns = graph_turns(lambda g: pose_graph_solve(*args, iters=iters,
+                                                   graph=g), iters,
+                        spread=True)
+    _, p_opt = turns["outputs"]
     err = float(np.linalg.norm(p_opt.cpu().numpy() - p_gt, axis=1).max())
     check(err < 0.02 and err < 0.25 * drift,
           f"pose graph: error {err} m against drift {drift} m")
     ms = cuda_ms(lambda: pose_graph_solve(*args, iters=iters), reps=3,
                  warmup=1)
     return {"nodes": K, "edges": len(ei), "iters": iters, "err_m": err,
-            "drift_m": drift, "ms": ms}
+            "drift_m": drift, "ms": ms, "turns": turns_record(turns)}
 
 
 def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
@@ -2618,16 +2813,27 @@ def ba_phase(dev, vio_scene, card):
         f"({a['ms_per_gn_step']:.3f} ms a GN step), cost {a['cost']:.4f} "
         f"(JAX package {a['cost_ref']}, rel {a['cost_rel']:+.2e}), poses "
         f"{a['max_dp_ref_m']:.3e} m from the JAX package's [{card}]")
+    log(f"ba: (a) ba_step {turns_line(a['step_turns'])} [{card}]")
+    log(f"ba: (a) ba_solve({it}) {turns_line(a['solve_turns'])} [{card}]")
 
     K, L, it = BA_LARGE
     torch.cuda.reset_peak_memory_stats()
-    b = ba_synthetic(dev, K, L, it, BA_REF_COST[(K, L)], step=False)
+    b = ba_synthetic(dev, K, L, it, BA_REF_COST[(K, L)], step=False,
+                     profile=True)
     b["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"ba: (b) {K} poses x {L} landmarks: ba_solve({it}) "
         f"{b['solve_ms']:.3f} ms ({b['ms_per_gn_step']:.3f} ms a GN step), "
         f"cost {b['cost']:.4f} (JAX package {b['cost_ref']}, rel "
         f"{b['cost_rel']:+.2e}), peak device memory {b['peak_mib']:.1f} MiB "
         f"[{card}]")
+    log(f"ba: (b) ba_solve({it}) {turns_line(b['solve_turns'])}; device "
+        f"busy {b['graph_device_busy_ms']:.3f} ms graphed, idle share "
+        f"{b['graph_idle_share']:.3f}, against {b['eager_device_busy_ms']:.3f}"
+        f" ms eager, idle share {b['eager_idle_share']:.3f}, over "
+        f"{b['graph_device_ops']} / {b['eager_device_ops']} device ops; a "
+        "GN step's largest, graphed: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in b["graph_top_ms_per_step"])
+        + f" [{card}]")
 
     launches, c = vio_to_ba(dev, vio_scene)
     log(f"ba: (c) VIO -> BA on the VIO scene ({c['frames']} frames): "
@@ -2638,19 +2844,29 @@ def ba_phase(dev, vio_scene, card):
         f"{c['ate_ba_m'] * 100:.3f} cm (gate < 2.5x + 0.5 cm), rotations "
         f"orthonormal to {c['orthonormal_err']:.1e}; launches {launches} "
         f"[{card}]")
+    log(f"ba: (c) ba_solve({BA_ITERS}) {turns_line(c['solve_turns'])} "
+        f"[{card}]")
     want = {"corner_score": c["frames"] + 1, "lk_track": c["frames"]}
     check(launches == want, f"ba launches {launches} != {want}")
 
     t0 = time.time()
-    with tempfile.TemporaryDirectory() as root:
-        report = ba_cli(root)
+    report, d = ba_cli_turns(dev)
+    ms = d["solve_ms"]
     log(f"ba: (d) run_vio --synthetic {BA_CLI_FRAMES} --no-imu --ba dense "
-        f"--ba-stride 2 in {time.time() - t0:.1f} s: {report}")
+        f"--ba-stride 2, four runs in {time.time() - t0:.1f} s: {report}; "
+        f"reports equal graph / eager; its one ba_solve({BA_ITERS}) in turns "
+        f"graph / eager / graph / eager {ms['graph'][0]:.3f} / "
+        f"{ms['eager'][0]:.3f} / {ms['graph'][1]:.3f} / {ms['eager'][1]:.3f}"
+        f" ms (the first graphed one with its warm-up steps and capture: "
+        f"{d['captures']}) [{card}]")
 
     e = pose_graph_circle(dev)
     log(f"ba: (e) pose graph, {e['nodes']} nodes / {e['edges']} edges, "
         f"{e['iters']} iterations: {e['ms']:.3f} ms, error "
         f"{e['err_m']:.3e} m (drift {e['drift_m']:.4f} m) [{card}]")
+    log(f"ba: (e) pose graph {turns_line(e['turns'])}; graph against eager "
+        f"{e['turns']['graph_vs_eager']} m, two eager runs' spread "
+        f"{e['turns']['eager_spread']} m [{card}]")
 
     f = batched_streams(dev)
     last, h = f["streams"] - 1, f["horizon"]
@@ -2676,8 +2892,8 @@ def ba_phase(dev, vio_scene, card):
         f"{f['graph_device_busy_ms_per_frame']:.3f} ms a frame, capture "
         f"{f['capture_ms'][0]:.1f} ms once [{card}]")
     log("ba: " + json.dumps({"dryrun": a, "large": b, "vio_to_ba": c,
-                             "cli": report, "pose_graph": e,
-                             "batched": f}))
+                             "cli": report, "cli_turns": d,
+                             "pose_graph": e, "batched": f}))
     return launches
 
 
@@ -2829,6 +3045,7 @@ def dist_one_rank(dev, ba_prob, card):
         mesh = make_mesh(device=dev)
         check(mesh.group is not None and mesh.size == 1, "no one-rank group")
         torch.cuda.reset_peak_memory_stats()
+        turns = dist_graph_turns(mesh)
         out = dryrun.dryrun_multichip(mesh, *BA_DRYRUN[:2],
                                       large=BA_LARGE[:2],
                                       log=lambda m: log(f"dist: (a) {m}"),
@@ -2854,11 +3071,76 @@ def dist_one_rank(dev, ba_prob, card):
     for k in ("solutions", "ms", "counts"):
         out.pop(k)
     out["timing"] = timing
+    out["turns"] = turns
+    for name, t in turns.items():
+        log(f"dist: (a) {name}: {turns_line(t)}; all_reduces a GN step "
+            f"{t['all_reduce_per_gn_step']:.1f} graphed, "
+            f"{t['eager_all_reduce_per_gn_step']:.1f} eager [{card}]")
     log(f"dist: (a) one rank, {out['backend']}: " + "; ".join(
         f"{k} {v['ms_per_gn_step']:.3f} ms a GN step, "
         f"{v['all_reduce_per_gn_step']:.1f} all_reduces a GN step"
         for k, v in timing.items())
         + f"; peak device memory {out['peak_mib']:.1f} MiB [{card}]")
+    return out
+
+
+def dist_graph_turns(mesh):
+    """The distributed solvers on `mesh` in turns graph / eager / graph /
+    eager (`graph_turns`), each on a fresh key, before the dryrun runs
+    them: dense, PCG (40 CG iterations) and submap at the dryrun's 32 x
+    2048, and 128 x 8192 auto -> PCG. Graph equal to eager bit for bit;
+    the all_reduces a GN step counted through replays equal the eager
+    loop's (dense 3, PCG cg_iters + 3); 0 host synchronisations in a
+    graphed solve after its capture (for the submap: its local solve,
+    the submap's bookkeeping being host numpy). Returns the numbers."""
+    from visma_tpu_torch.ba.problem import BaProblem, synthetic_ba_problem
+    from visma_tpu_torch.dist import submap_ba
+    from visma_tpu_torch.dist.pcg_ba import pcg_ba_solve
+    from visma_tpu_torch.dist.sharded_ba import sharded_ba_solve
+
+    prob, _ = synthetic_ba_problem(*BA_DRYRUN[:2], 0.5, 0.02,
+                                   device=mesh.device)
+    big, _ = synthetic_ba_problem(*BA_LARGE[:2], 0.5, 0.02,
+                                  device=mesh.device)
+    chunks, _ = submap_ba.split_into_chunks(prob, mesh.size, halo=2)
+    chunk = BaProblem(*(getattr(chunks, f)[mesh.shard_rank()] for f in
+                        ("R", "p", "X", "obs", "mask", "intr")))
+    cases = {
+        "dense": (lambda g: sharded_ba_solve(prob, mesh, iters=10,
+                                             solver="dense", graph=g), 10,
+                  3, None),
+        "pcg": (lambda g: pcg_ba_solve(prob, mesh, iters=10, cg_iters=40,
+                                       graph=g), 10, 43, None),
+        "submap": (lambda g: submap_ba.submap_ba_solve(
+            prob, mesh, iters=8, polish_iters=6, halo=2,
+            polish_solver="pcg", graph=g)[0], 8 + 6, None,
+            lambda: submap_ba._local_solve(chunk, 8)),
+        "large_auto_pcg": (lambda g: sharded_ba_solve(
+            big, mesh, iters=BA_LARGE[2], solver="auto", cg_iters=40,
+            graph=g), BA_LARGE[2], 43, None)}
+    out = {}
+    for name, (call, steps, per_step, sync_call) in cases.items():
+        counted = {}
+
+        def counting(g, call=call, counted=counted):
+            mesh.counts.update(all_reduce=0, all_gather=0)
+            res = call(g)
+            counted.setdefault(g, dict(mesh.counts))
+            return res
+
+        t = graph_turns(counting, steps, sync_call=sync_call)
+        t = turns_record(t)
+        t["all_reduce_per_gn_step"] = counted[True]["all_reduce"] / steps
+        t["eager_all_reduce_per_gn_step"] = (counted[False]["all_reduce"]
+                                             / steps)
+        check(counted[True] == counted[False],
+              f"{name}: collectives graphed {counted[True]} != eager "
+              f"{counted[False]}")
+        if per_step is not None:
+            check(t["all_reduce_per_gn_step"] == per_step,
+                  f"{name}: {t['all_reduce_per_gn_step']} all_reduces a GN "
+                  f"step, not {per_step}")
+        out[name] = t
     return out
 
 
@@ -2911,6 +3193,15 @@ def dist_rank_main(rank, world, addr, out_dir, device):
     out["timing"] = solver_timing(out)
     for k in ("ms", "counts"):
         out.pop(k)
+    # a gloo group loops its mesh solvers eagerly; the local solve and the
+    # stitch make no collective and capture on the card
+    from visma_tpu_torch.dist import sharded_ba
+
+    out["mesh_solver_graphs"] = sum(
+        key[0] is mesh for key in sharded_ba._RUNS) + sum(
+        key is mesh for key in sharded_ba._STEPS)
+    out["captures"] = {label: r.captures for label, r in solver_graphs()
+                       if r.captures}
     tdist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fp:
@@ -2960,6 +3251,13 @@ def dist_gloo_ranks(card, device="cuda:0", world=DIST_RANKS):
             check(np.array_equal(arrays[r][k], v),
                   f"rank {r}'s {k} differs from rank 0's")
     res = nums[0]
+    for r, n in enumerate(nums):
+        check(n["mesh_solver_graphs"] == 0,
+              f"gloo rank {r} made {n['mesh_solver_graphs']} mesh solver "
+              "graphs")
+    log(f"dist: (b) captures on each of the {world} gloo ranks: "
+        f"{[n['captures'] for n in nums]}; mesh solvers (eager on gloo): "
+        f"{[n['mesh_solver_graphs'] for n in nums]} graphs")
     log(f"dist: (b) {world} gloo ranks on one card: replicated outputs the "
         f"same bytes on every rank ({len(arrays[0])} arrays); " + "; ".join(
             f"{k} {v['ms_per_gn_step']:.3f} ms a GN step, "

@@ -132,6 +132,7 @@ def test_chip_smoke_ba_phase_on_the_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "cuda_ms",
                         lambda fn, reps=1, warmup=0: (fn(), 0.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "sync_counter", lambda fn: (fn(), 0)[1])
     dev = torch.device("cpu")
 
     jp, _ = j_synthetic(8, 64, 0.5, 0.02)

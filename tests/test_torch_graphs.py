@@ -377,3 +377,39 @@ def test_launch_counter_arithmetic(stub_cuda):
     finally:
         _kernels._COUNTED.remove(stub_kernel)
         _kernels._COUNTED.remove(idle_kernel)
+
+
+def test_mesh_collectives_counted_through_replays(stub_cuda, monkeypatch):
+    """A mesh's collectives as its runner's counts: a stub PCG step that
+    all_reduces cg_iters + 3 = 7 times a step on the group-less one-rank
+    mesh. The capture counts 0 and each replay 7: 7 steps count 2 warm-ups
+    x 7 + the capture's 7 taken back out + 5 replays x 7 = 49, one
+    capture; a repeat run of the same shapes counts all 7 steps through
+    replays (49, no capture). The same through a CallGraph: an eager
+    call, a capture with its replay, a replay: 3 x 7."""
+    from visma_tpu_torch.dist.mesh import make_mesh
+    from visma_tpu_torch.utils.graphs import CallGraph
+
+    monkeypatch.setattr(CallGraph, "_side_stream",
+                        staticmethod(lambda device: _StubStream()))
+    mesh = make_mesh(device="cpu")
+    per_step = 4 + 3
+
+    def step(state, x):
+        for _ in range(per_step):
+            state = mesh.all_reduce(state)
+        return state + x, state
+
+    sg = StepGraph(step, counts=(mesh.counts,))
+    sg.run(torch.zeros(()), torch.ones(7))
+    assert (sg.captures, mesh.counts["all_reduce"]) == (1, 49)
+    mesh.counts.update(all_reduce=0)
+    sg.run(torch.zeros(()), torch.ones(7))
+    assert (sg.captures, mesh.counts["all_reduce"]) == (1, 49)
+
+    mesh.counts.update(all_reduce=0)
+    cg = CallGraph(lambda x: step(x, x)[0], counts=(mesh.counts,))
+    for _ in range(3):
+        cg(torch.ones(()))
+    assert (cg.captures, mesh.counts) == (1, {"all_reduce": 3 * per_step,
+                                              "all_gather": 0})

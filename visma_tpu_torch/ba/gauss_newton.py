@@ -3,11 +3,20 @@ visma_tpu/ba/gauss_newton.py).
 
 All per-landmark algebra is batched (L, ...) einsums; the reduced camera
 system is assembled as (K,K,6,6) blocks; the only sequential parts are the
-dense (6K x 6K) Cholesky and the GN outer loop, here a Python loop of
-exactly `iters` steps whose accept/reject is a `torch.where` on the device,
-so a solve on the card queues without waiting for the host. The landmark
-axis L is the axis a distributed solver shards: `build_blocks`,
-`build_reduced_system` and `backsub_landmarks` are its per-shard pieces.
+dense (6K x 6K) Cholesky and the GN outer loop of exactly `iters` steps,
+whose accept/reject is a `torch.where` on the device, so a solve on the
+card queues without waiting for the host. The landmark axis L is the axis
+a distributed solver shards: `build_blocks`, `build_reduced_system` and
+`backsub_landmarks` are its per-shard pieces.
+
+The reference jits `ba_step` and runs the LM loop as a jitted
+`lax.scan`. Here, on a CUDA device, `ba_step` replays a `CallGraph` and
+`ba_solve` a `StepGraph` a GN step (`utils.graphs`: two eager warm-up
+steps, one capture per problem shape, then a replay a step; a later solve
+of the same shapes replays from its first step). `graph=False` gives the
+eager step and the eager loop, the same arithmetic. Every tensor a step
+reads comes in through the graph's buffers, none from a closure: the
+replay of a cached graph reads its buffers by address.
 
 Robustness: Huber weights with a hard trim on the pixel residual;
 Levenberg damping; gauge fixed by freezing pose 0; monocular scale pinned by
@@ -16,13 +25,17 @@ a prior on the longest baseline. Products run at full float32 precision
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import partial
+from typing import Optional, Tuple
 
 import torch
 
 from visma_tpu_torch.ba.problem import BaProblem
 from visma_tpu_torch.geom.rotations import hat, rodrigues
-from visma_tpu_torch.utils.misc import cholesky_or_nan, full_f32
+from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
+                                          wants_graph)
+from visma_tpu_torch.utils.misc import (cho_solve, cholesky_or_nan,
+                                        full_f32, inv_ex)
 
 
 def _reproject(prob: BaProblem):
@@ -78,7 +91,7 @@ def build_blocks(prob: BaProblem, damping, huber_delta: float = 5.0):
     """Per-shard Schur building blocks: Hpp (K,6,6) per-pose Hessian
     partial, bp (K,6), Hll_inv (L,3,3), Hpl (L,K,6,3), bl (L,3). Sums over
     the landmark axis are partial on a landmark shard. `Hll_inv` comes from
-    `torch.linalg.inv_ex`, which does not check its result on the host."""
+    `utils.misc.inv_ex`, which does not check its result on the host."""
     r, Jp, Jl = _residual_jacobians(prob)
     w = _huber_weights(r, huber_delta) * prob.mask          # (L,K)
 
@@ -90,7 +103,7 @@ def build_blocks(prob: BaProblem, damping, huber_delta: float = 5.0):
     Hll = torch.einsum("lkai,lkaj->lij", Jl_w, Jl) + (damping + 1e-6) * eye3
     bl = torch.einsum("lkai,lka->li", Jl_w, r)
     Hpl = torch.einsum("lkai,lkaj->lkij", Jp_w, Jl)         # (L,K,6,3)
-    Hll_inv = torch.linalg.inv_ex(Hll)[0]                   # (L,3,3)
+    Hll_inv = inv_ex(Hll)                                   # (L,3,3)
     return Hpp, bp, Hll_inv, Hpl, bl
 
 
@@ -174,15 +187,16 @@ def total_cost(prob: BaProblem, huber_delta: float = 5.0) -> torch.Tensor:
 def cho_solve_sym(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve S x = b for a symmetric positive definite S through its upper
     Cholesky factor (`jax.scipy.linalg.cho_factor`'s default), without a
-    host sync: a failed factorisation gives NaN, as the reference's does."""
+    host sync: a failed factorisation gives NaN, as the reference's does.
+    The solve is on cuSOLVER for CUDA tensors (`utils.misc.cho_solve`)."""
     U = cholesky_or_nan(S, upper=True)
-    return torch.cholesky_solve(b[:, None], U, upper=True)[:, 0]
+    return cho_solve(b[:, None], U, upper=True)[:, 0]
 
 
 @full_f32()
-def ba_step(prob: BaProblem, damping, scale_anchor=None
-            ) -> Tuple[BaProblem, torch.Tensor]:
-    """One damped GN step; returns (new problem, new cost)."""
+def _step(prob: BaProblem, damping, scale_anchor=None
+          ) -> Tuple[BaProblem, torch.Tensor]:
+    """The eager damped GN step: (new problem, new cost)."""
     S, b, aux = build_reduced_system(prob, damping, scale_anchor=scale_anchor)
     dxp = cho_solve_sym(0.5 * (S + S.T), b)
     dxl = backsub_landmarks(aux, dxp)
@@ -190,28 +204,79 @@ def ba_step(prob: BaProblem, damping, scale_anchor=None
     return new, total_cost(new)
 
 
+def _step_call(prob: BaProblem, damping, *anchor):
+    """The step as `_STEP` captures it: what changes, not the observations
+    (the caller's problem keeps them)."""
+    new, cost = _step(prob, damping, *anchor)
+    return new.R, new.p, new.X, cost
+
+
+# the reference's `jax.jit` of ba_step (visma_tpu/ba/gauss_newton.py:162):
+# one graph per problem shape and anchor or none
+_STEP = CallGraph(_step_call)
+
+
+def ba_step(prob: BaProblem, damping, scale_anchor=None,
+            graph: Optional[bool] = None) -> Tuple[BaProblem, torch.Tensor]:
+    """One damped GN step; returns (new problem, new cost). `damping` is a
+    number or a 0-d tensor (a number becomes a 0-d tensor of the problem's
+    dtype on its device, made there: no copy from the host). On a CUDA
+    device the step replays a captured graph (`graph=None`; its first call
+    for a shape is eager, the second captures); `graph=False` is the eager
+    step."""
+    dev = prob.R.device
+    lam = damping if isinstance(damping, torch.Tensor) else torch.full(
+        (), damping, dtype=prob.R.dtype, device=dev)
+    anchor = () if scale_anchor is None else (scale_anchor,)
+    if not wants_graph(graph, dev):
+        return _step(prob, lam, *anchor)
+    R, p, X, cost = _STEP(prob, lam, *anchor)
+    return prob.replace(R=R, p=p, X=X), cost
+
+
+def _lm_body(state, _):
+    """One step of the reference's LM scan (`_ba_run`, gauss_newton.py:
+    176-194): accept a step that lowers the cost, else raise the damping.
+    The state is (problem, damping, cost, scale anchor); the observations,
+    mask, intrinsics and anchor come back as they went in, so a graph
+    never copies them. The output is the cost after the step."""
+    cur, lam, cost, anchor = state
+    cand, cand_cost = _step(cur, lam, anchor)
+    better = cand_cost < cost
+    cur = cur.replace(R=torch.where(better, cand.R, cur.R),
+                      p=torch.where(better, cand.p, cur.p),
+                      X=torch.where(better, cand.X, cur.X))
+    lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-6),
+                      torch.clamp(lam * 4.0, max=1e2))
+    cost = torch.where(better, cand_cost, cost)
+    return (cur, lam, cost, anchor), cost
+
+
+# the reference's jitted `_ba_run`: its body reads no Python constant, so
+# one StepGraph serves every solve (it keeps a graph per problem shape)
+_RUN = StepGraph(_lm_body)
+
+
+def steps_of(iters: int, device) -> torch.Tensor:
+    """The scan's empty per-step input of an LM loop of `iters` steps."""
+    return torch.empty((iters, 0), device=device)
+
+
 @full_f32()
-def ba_solve(prob: BaProblem, iters: int = 10, damping: float = 1e-3
-             ) -> Tuple[BaProblem, torch.Tensor]:
+def ba_solve(prob: BaProblem, iters: int = 10, damping: float = 1e-3,
+             graph: Optional[bool] = None) -> Tuple[BaProblem, torch.Tensor]:
     """LM-flavoured loop (the reference's `_ba_run`): accept a step that
     reduces the cost, else raise the damping. Damping halves on accept
     (floor 1e-6) and quadruples on reject (cap 1e2).
 
     Returns (solution, cost history (iters,)). Exactly `iters` steps, each
     accepted or rejected by `torch.where` on the device: nothing is read
-    back to the host."""
-    lam = torch.tensor(damping, dtype=torch.float32, device=prob.R.device)
-    anchor = torch.linalg.norm(prob.p[-1] - prob.p[0])
-    cur, cost = prob, total_cost(prob)
-    hist = []
-    for _ in range(iters):
-        cand, cand_cost = ba_step(cur, lam, anchor)
-        better = cand_cost < cost
-        cur = cur.replace(R=torch.where(better, cand.R, cur.R),
-                          p=torch.where(better, cand.p, cur.p),
-                          X=torch.where(better, cand.X, cur.X))
-        lam = torch.where(better, torch.clamp(lam * 0.5, min=1e-6),
-                          torch.clamp(lam * 4.0, max=1e2))
-        cost = torch.where(better, cand_cost, cost)
-        hist.append(cost)
-    return cur, torch.stack(hist)
+    back to the host. On a CUDA device the steps replay a captured graph
+    (`graph=None`); `graph=False` is the eager loop."""
+    dev = prob.R.device
+    state = (prob, torch.full((), damping, dtype=torch.float32, device=dev),
+             total_cost(prob), torch.linalg.norm(prob.p[-1] - prob.p[0]))
+    run = _RUN.run if wants_graph(graph, dev) else partial(run_eager,
+                                                           _lm_body)
+    (sol, _, _, _), hist = run(state, steps_of(iters, dev))
+    return prob.replace(R=sol.R, p=sol.p, X=sol.X), hist

@@ -17,17 +17,26 @@ window-scale.
 The (K,K,6,6) blocks are summed with `index_put(..., accumulate=True)` and
 `index_add`. On CUDA their order of accumulation is not fixed, so a result
 on the card can vary in its last bits from run to run.
+
+The reference jits the solve and scans its iterations
+(pose_graph.py:34, :94). Here, on a CUDA device, the iterations replay a
+`StepGraph` a GN iteration (`utils.graphs`), the vmapped `jvp` inside the
+capture; the state is the poses, and the edges, measurements and weights
+pass through the graph's buffers unchanged. `graph=False` is the eager
+loop.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import partial
+from typing import Optional, Tuple
 
 import torch
 from torch.func import jvp, vmap
 
-from visma_tpu_torch.ba.gauss_newton import cho_solve_sym
+from visma_tpu_torch.ba.gauss_newton import cho_solve_sym, steps_of
 from visma_tpu_torch.geom import SE3
 from visma_tpu_torch.geom.rotations import rodrigues
+from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
 from visma_tpu_torch.utils.misc import full_f32
 
 
@@ -62,50 +71,72 @@ def _edge_terms(Ri, pi, Rj, pj, Rm, pm):
     return f(z), J[..., :6], J[..., 6:]
 
 
+def _gn_body(damping: float, state, _):
+    """One GN iteration. The state is (R, p, edges i, edges j, R_meas,
+    p_meas, edge weights): the poses change, the rest comes back as it
+    went in. No output."""
+    Rc, pc, ei, ej, R_meas, p_meas, w = state
+    K = Rc.shape[0]
+    D = 6 * K
+    dev = Rc.device
+    eye = torch.eye(D, dtype=Rc.dtype, device=dev)
+    gauge = torch.arange(D, device=dev) < 6
+    res, Ji, Jj = _edge_terms(Rc[ei], pc[ei], Rc[ej], pc[ej], R_meas, p_meas)
+    res = res * w[:, None]
+    Ji = Ji * w[:, None, None]
+    Jj = Jj * w[:, None, None]
+
+    H = torch.zeros((K, K, 6, 6), dtype=Rc.dtype, device=dev)
+    H = H.index_put((ei, ei), torch.einsum("eai,eaj->eij", Ji, Ji),
+                    accumulate=True)
+    H = H.index_put((ej, ej), torch.einsum("eai,eaj->eij", Jj, Jj),
+                    accumulate=True)
+    H = H.index_put((ei, ej), torch.einsum("eai,eaj->eij", Ji, Jj),
+                    accumulate=True)
+    H = H.index_put((ej, ei), torch.einsum("eai,eaj->eij", Jj, Ji),
+                    accumulate=True)
+    b = torch.zeros((K, 6), dtype=Rc.dtype, device=dev)
+    b = b.index_add(0, ei, -torch.einsum("eai,ea->ei", Ji, res))
+    b = b.index_add(0, ej, -torch.einsum("eai,ea->ei", Jj, res))
+
+    Hd = H.permute(0, 2, 1, 3).reshape(D, D) + damping * eye
+    Hd = torch.where(gauge[:, None] | gauge[None, :], 1e6 * eye, Hd)
+    bd = torch.where(gauge, torch.zeros_like(b.reshape(-1)), b.reshape(-1))
+    dx = cho_solve_sym(0.5 * (Hd + Hd.T), bd).reshape(K, 6)
+    return (rodrigues(dx[:, :3]) @ Rc, pc + dx[:, 3:], ei, ej, R_meas,
+            p_meas, w), ()
+
+
+# the reference's jitted solve: one StepGraph per damping, the one Python
+# constant its body reads (each keeps a graph per graph shape), kept for
+# the life of the process
+_RUNS: dict = {}
+
+
 @full_f32()
 def pose_graph_solve(R: torch.Tensor, p: torch.Tensor,
                      edges_i: torch.Tensor, edges_j: torch.Tensor,
                      R_meas: torch.Tensor, p_meas: torch.Tensor,
                      edge_valid: torch.Tensor = None,
-                     iters: int = 10, damping: float = 1e-4
+                     iters: int = 10, damping: float = 1e-4,
+                     graph: Optional[bool] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """R (K,3,3), p (K,3); edges_* (E,) indices; R_meas/p_meas (E,3,3)/(E,3),
     all on one device. Node 0 is gauge-fixed. Returns optimised (R, p)
-    after exactly `iters` GN steps (a Python loop; nothing is read back to
-    the host)."""
-    K = R.shape[0]
+    after exactly `iters` GN steps (nothing is read back to the host). On
+    a CUDA device the steps replay a captured graph (`graph=None`);
+    `graph=False` is the eager loop."""
     dev = R.device
-    ei, ej = edges_i.long(), edges_j.long()
+    ei = edges_i.long()
     w = (torch.ones(ei.shape[0], dtype=R.dtype, device=dev)
          if edge_valid is None else edge_valid.to(R.dtype))
-    D = 6 * K
-    eye = torch.eye(D, dtype=R.dtype, device=dev)
-    gauge = torch.arange(D, device=dev) < 6
-    Rc, pc = R, p
-    for _ in range(iters):
-        res, Ji, Jj = _edge_terms(Rc[ei], pc[ei], Rc[ej], pc[ej], R_meas,
-                                  p_meas)
-        res = res * w[:, None]
-        Ji = Ji * w[:, None, None]
-        Jj = Jj * w[:, None, None]
-
-        H = torch.zeros((K, K, 6, 6), dtype=R.dtype, device=dev)
-        H = H.index_put((ei, ei), torch.einsum("eai,eaj->eij", Ji, Ji),
-                        accumulate=True)
-        H = H.index_put((ej, ej), torch.einsum("eai,eaj->eij", Jj, Jj),
-                        accumulate=True)
-        H = H.index_put((ei, ej), torch.einsum("eai,eaj->eij", Ji, Jj),
-                        accumulate=True)
-        H = H.index_put((ej, ei), torch.einsum("eai,eaj->eij", Jj, Ji),
-                        accumulate=True)
-        b = torch.zeros((K, 6), dtype=R.dtype, device=dev)
-        b = b.index_add(0, ei, -torch.einsum("eai,ea->ei", Ji, res))
-        b = b.index_add(0, ej, -torch.einsum("eai,ea->ei", Jj, res))
-
-        Hd = H.permute(0, 2, 1, 3).reshape(D, D) + damping * eye
-        Hd = torch.where(gauge[:, None] | gauge[None, :], 1e6 * eye, Hd)
-        bd = torch.where(gauge, torch.zeros_like(b.reshape(-1)),
-                         b.reshape(-1))
-        dx = cho_solve_sym(0.5 * (Hd + Hd.T), bd).reshape(K, 6)
-        Rc, pc = rodrigues(dx[:, :3]) @ Rc, pc + dx[:, 3:]
+    state = (R, p, ei, edges_j.long(), R_meas, p_meas, w)
+    if wants_graph(graph, dev):
+        run = _RUNS.get(damping)
+        if run is None:
+            run = _RUNS[damping] = StepGraph(partial(_gn_body, damping))
+        run = run.run
+    else:
+        run = partial(run_eager, partial(_gn_body, damping))
+    (Rc, pc, *_), _ = run(state, steps_of(iters, dev))
     return Rc, pc

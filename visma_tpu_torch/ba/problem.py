@@ -7,6 +7,7 @@ from dataclasses import dataclass, replace as _replace
 import numpy as np
 import torch
 
+from visma_tpu_torch.filter.state import register_pytree
 from visma_tpu_torch.utils.misc import as_f32, resolve_device
 
 
@@ -15,7 +16,8 @@ class BaProblem:
     """Poses: world<-camera (R (K,3,3), p (K,3)); landmarks X (L,3);
     observations obs (L,K,2) pixels with mask (L,K) bool; intrinsics
     (fx,fy,cx,cy) as a (4,) tensor. Pose 0 is gauge-fixed. All float32 on
-    one device."""
+    one device. A pytree node (its fields in this order), so that a
+    captured solver's buffers (`utils.graphs`) hold it."""
 
     R: torch.Tensor
     p: torch.Tensor
@@ -34,6 +36,9 @@ class BaProblem:
 
     def replace(self, **kw) -> "BaProblem":
         return _replace(self, **kw)
+
+
+register_pytree(BaProblem)
 
 
 def make_problem(R, p, X, obs, mask, fx, fy, cx, cy,

@@ -16,7 +16,9 @@ ATE after similarity alignment (align.umeyama).
 adjustment (BASELINE config 5): the problem is rebuilt from the run's own
 observations and estimates (ba/from_vio.py, keyframes every --ba-stride
 frames), solved by `ba.ba_solve` (--ba-iters GN steps) on the run's
-device, and written back over every frame. --ba sharded solves it with the
+device (on the card its steps replay a captured CUDA graph: two eager
+warm-up steps and the capture come out of the first solve), and written
+back over every frame. --ba sharded solves it with the
 landmark-sharded `dist.sharded_ba_solve` over `dist.make_mesh()` instead
 (one rank in a single process). The report then adds the BA trajectory's
 ATE, over all frames and at the keyframes.

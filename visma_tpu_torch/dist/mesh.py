@@ -5,7 +5,10 @@ a process group: one process a rank, each rank on its own device (or, to
 check the arithmetic on one card, several gloo ranks on that card). The
 two collectives the solvers need are methods of the mesh, and the mesh
 counts them, as the kernels count their launches: set `counts` to zeros
-before a call and read it after.
+before a call and read it after. A solver whose steps replay a captured
+CUDA graph hands `counts` to its runner (`utils.graphs`), which counts a
+capture 0 and each replay the collectives its capture made, so the count
+is the same graphed or eager.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from visma_tpu_torch.utils.graphs import wants_graph
 from visma_tpu_torch.utils.misc import resolve_device
 
 
@@ -46,6 +50,34 @@ class Mesh:
         """This rank's place in the mesh; raises on a rank left out."""
         self._member()
         return self.rank
+
+    def graphed(self, graph: Optional[bool]) -> bool:
+        """Whether a solver over this mesh runs its steps as a captured
+        CUDA graph, from the solver's `graph` argument and the backend:
+
+          * the one-rank mesh without a group captures: its collectives
+            are the identity;
+          * an nccl group captures: its collectives are device work on the
+            card (the eager warm-up steps create the communicator before
+            the capture);
+          * a group of another backend (gloo) cannot: its collectives run
+            on the host. `graph=None` then runs the eager loop, and
+            `graph=True` on a CUDA device raises.
+
+        This is a rule about the backend, not a fallback: a capture that
+        fails raises `GraphCaptureError`. On the CPU nothing is captured:
+        `graph=None` is the eager loop, `graph=True` runs the graph's
+        static buffers, whatever the backend."""
+        if self.device.type != "cuda":
+            return wants_graph(graph, self.device)
+        backend = None if self.group is None else dist.get_backend(self.group)
+        captures = backend in (None, "nccl")
+        if graph is None:
+            return captures
+        if graph and not captures:
+            raise ValueError(f"a {backend} group cannot be captured into a "
+                             "CUDA graph: its collectives run on the host")
+        return bool(graph)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of `t` over the mesh (the reference's `psum`), as a new

@@ -17,12 +17,20 @@ and the monocular scale-anchor prior are applied after the reduction
 operator form. Per GN step: one (K,6,6) and one (K,6) all_reduce,
 `cg_iters` of (6K,), and one of the cost.
 
-The reference caches its jitted solver per mesh (`_jitted_pcg_solver`);
-eager PyTorch compiles nothing, so there is nothing to cache.
+The reference runs the CG as a `lax.scan` inside the shard_map'd step,
+inside its LM scan, jitted and cached per (mesh, iters, cg_iters)
+(`_jitted_pcg_solver`, pcg_ba.py:116-178). Here, where the mesh captures
+(`Mesh.graphed`), the whole matrix-free GN step is the body of the LM
+loop's `StepGraph`, cached per (mesh, cg_iters): the Schur pieces, the
+`cg_iters` CG iterations unrolled into the capture, the
+back-substitution, the update and the cost's all_reduce, so one replay is
+one GN step. The matvec's closure over Hpp, Hpl and Hll_inv is safe in a
+replay because the step makes those tensors itself.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import partial
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,8 +38,9 @@ from visma_tpu_torch.ba.gauss_newton import (_apply, backsub_landmarks,
                                              build_blocks, total_cost)
 from visma_tpu_torch.ba.problem import BaProblem
 from visma_tpu_torch.dist.mesh import Mesh
-from visma_tpu_torch.dist.sharded_ba import _gather, _lm_loop, _shard_problem
-from visma_tpu_torch.utils.misc import full_f32
+from visma_tpu_torch.dist.sharded_ba import (_gather, _lm_loop,
+                                             _shard_problem, lm_runner)
+from visma_tpu_torch.utils.misc import full_f32, inv_ex
 
 _GAUGE_W = 1e6
 
@@ -101,7 +110,7 @@ def _schur_pieces(prob_shard: BaProblem, damping, scale_weight, mesh: Mesh):
     Dd[0] = torch.eye(6, dtype=D.dtype, device=dev) * _GAUGE_W  # gauge block
     # inv_ex: the reference's inverse does not check its result, and a
     # check would read it back to the host
-    Minv = torch.linalg.inv_ex(Dd)[0]                         # (K,6,6)
+    Minv = inv_ex(Dd)                                         # (K,6,6)
     return matvec, Minv, b, (Hll_inv, Hpl, bl)
 
 
@@ -142,15 +151,18 @@ def _pcg_step(shard: BaProblem, damping, mesh: Mesh, cg_iters: int):
 
 
 def pcg_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
-                 cg_iters: int = 25, damping: float = 1e-3
+                 cg_iters: int = 25, damping: float = 1e-3,
+                 graph: Optional[bool] = None
                  ) -> Tuple[BaProblem, torch.Tensor]:
     """Distributed LM loop with the matrix-free PCG inner solver.
 
     Same acceptance logic and gauge/prior construction as
     sharded_ba_solve; communication per GN step is one (K,6,6) + one (K,6)
-    all_reduce plus cg_iters (K,6) ones and the cost's: O(K), not O(K^2)."""
+    all_reduce plus cg_iters (K,6) ones and the cost's: O(K), not O(K^2).
+    graph: None replays a captured graph a GN step where the mesh captures
+    (`Mesh.graphed`), False is the eager loop."""
     shard, L = _shard_problem(prob, mesh)
-    sol, hist = _lm_loop(
-        lambda cur, lam: _pcg_step(cur, lam, mesh, cg_iters), shard,
-        total_cost(prob), damping, iters)
+    run = lm_runner(mesh, (mesh, "pcg", cg_iters),
+                    partial(_pcg_step, mesh=mesh, cg_iters=cg_iters), graph)
+    sol, hist = _lm_loop(run, shard, total_cost(prob), damping, iters)
     return _gather(sol, prob, L, mesh), hist

@@ -15,13 +15,16 @@ halo of keyframes shared with its right neighbour. Pipeline:
 
 Chunking trades global optimality for sequence-parallel throughput, the
 standard submapping compromise. The bookkeeping and the stitch are host
-numpy, as in the reference. The reference caches its jitted local solver
-per mesh (`_jitted_local_solver`); eager PyTorch compiles nothing, so
-there is nothing to cache.
+numpy, as in the reference. The reference jits its local solver, a
+`shard_map` + scan cached per mesh (`_jitted_local_solver`,
+submap_ba.py:103-143). Here the local solve is `ba_solve`, which replays
+its own cached graph a GN step on a CUDA device whatever the mesh's
+backend (it makes no collective); the stitch's pose graph replays its
+graph too, and the polish follows `Mesh.graphed`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,17 +104,19 @@ def split_into_chunks(prob: BaProblem, n_chunks: int, halo: int = 1):
     return chunks, info
 
 
-def _local_solve(chunk: BaProblem, iters: int) -> BaProblem:
+def _local_solve(chunk: BaProblem, iters: int,
+                 graph: Optional[bool] = None) -> BaProblem:
     """Damped-GN loop on one chunk (submap_ba.py:66-88): damping 1e-3, the
     scale anchor of the chunk's first and last pose, accept on a lower
     cost. That is `ba_solve`'s loop, step for step."""
-    return ba_solve(chunk, iters=iters)[0]
+    return ba_solve(chunk, iters=iters, graph=graph)[0]
 
 
 def submap_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
                     polish_iters: int = 3, halo: int = 1,
                     consensus: bool = True,
-                    polish_solver: str = "auto") -> Tuple[BaProblem, dict]:
+                    polish_solver: str = "auto",
+                    graph: Optional[bool] = None) -> Tuple[BaProblem, dict]:
     """Keyframe-sharded BA over the mesh. Returns (stitched problem, info).
 
     polish_iters: after stitching, run a few global landmark-sharded
@@ -129,7 +134,13 @@ def submap_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
     consensus: landmarks duplicated across chunks are written back as the
     observation-count-weighted average of the corrected per-chunk
     estimates instead of owner-takes-all.
+
+    graph: None replays captured graphs on a CUDA device (the local solve
+    and the stitch always, the polish where the mesh captures), False is
+    the eager loops; True on a mesh that cannot capture raises
+    (`Mesh.graphed`).
     """
+    polish_graph = mesh.graphed(graph)
     if prob.R.device != mesh.device:
         raise ValueError(f"the problem is on {prob.R.device}, the mesh's "
                          f"rank computes on {mesh.device}")
@@ -140,7 +151,7 @@ def submap_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
     d = mesh.shard_rank()
     mine = _local_solve(BaProblem(*(getattr(chunks, f)[d] for f in
                                     ("R", "p", "X", "obs", "mask", "intr"))),
-                        iters)
+                        iters, graph)
     Kc, Lc = chunks.R.shape[1], chunks.X.shape[1]
     # one all_gather of the rank's (R, p, X), flattened
     flat = mesh.all_gather(torch.cat([mine.R.reshape(1, -1),
@@ -149,16 +160,18 @@ def submap_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
     R, p, X = flat.split([Kc * 9, Kc * 3, Lc * 3], dim=1)
     sol = chunks.replace(R=R.reshape(D, Kc, 3, 3), p=p.reshape(D, Kc, 3),
                          X=X.reshape(D, Lc, 3))
-    stitched = _stitch(prob, sol, info)
+    stitched = _stitch(prob, sol, info, graph)
     if polish_iters > 0:
         from visma_tpu_torch.dist.sharded_ba import sharded_ba_solve
 
         stitched, _ = sharded_ba_solve(stitched, mesh, iters=polish_iters,
-                                       solver=polish_solver)
+                                       solver=polish_solver,
+                                       graph=polish_graph)
     return stitched, info
 
 
-def _stitch(prob: BaProblem, sol: BaProblem, info) -> BaProblem:
+def _stitch(prob: BaProblem, sol: BaProblem, info,
+            graph: Optional[bool] = None) -> BaProblem:
     """Pose-graph alignment of chunks via shared halo keyframes, then
     write corrected poses/landmarks back into the global problem."""
     from visma_tpu_torch.ba.pose_graph import pose_graph_solve
@@ -218,7 +231,7 @@ def _stitch(prob: BaProblem, sol: BaProblem, info) -> BaProblem:
         Rc, pc = pose_graph_solve(
             R0, p0, torch.as_tensor(ei, dtype=torch.int32, device=dev),
             torch.as_tensor(ej, dtype=torch.int32, device=dev),
-            f32(Rm), f32(pm), iters=8)
+            f32(Rm), f32(pm), iters=8, graph=graph)
         Rc, pc = Rc.cpu().numpy(), pc.cpu().numpy()
     else:
         Rc = np.broadcast_to(np.eye(3, dtype=np.float32), (1, 3, 3))

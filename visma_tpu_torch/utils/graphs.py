@@ -1,10 +1,13 @@
 """Captured CUDA graphs, the port's counterpart of the reference's
-`jax.jit`: `StepGraph` replays a step once a frame over a sequence (jit +
-`lax.scan`, visma_tpu/pipeline.py:84-116,
-visma_tpu/filter/msckf.py:254-305), `CallGraph` replays a whole function
-once a call (the reference's jitted executors,
-visma_tpu/semantic/cem.py:329-372, :508-551,
-visma_tpu/semantic/mapper.py:760-785).
+`jax.jit`: `StepGraph` replays a step once a frame over a sequence, or
+once a GN step over a solver's LM loop (jit + `lax.scan`,
+visma_tpu/pipeline.py:84-116, visma_tpu/filter/msckf.py:254-305,
+visma_tpu/ba/gauss_newton.py:176-194, visma_tpu/dist/sharded_ba.py:
+101-121, visma_tpu/dist/pcg_ba.py:157-178, visma_tpu/ba/pose_graph.py:
+94), `CallGraph` replays a whole function once a call (the reference's
+jitted executors and steps, visma_tpu/semantic/cem.py:329-372, :508-551,
+visma_tpu/semantic/mapper.py:760-785, visma_tpu/ba/gauss_newton.py:162,
+visma_tpu/dist/sharded_ba.py:95-97).
 
 A step is `body(state, x) -> (state, out)` over pytrees of tensors (the
 port's states are registered pytree nodes). `run_eager` loops it over the
@@ -34,7 +37,10 @@ the same through static buffers:
     preallocated (N, ...) record;
   * a CUDA graph replays kernels without running the Python that counts
     them: the launches a capture records (`_kernels.launch_counts`) are
-    taken back out of the counters and added once a replay;
+    taken back out of the counters and added once a replay. The same holds
+    for the dicts of counters a runner is given (`counts`: a mesh's
+    collectives, `dist.mesh.Mesh.counts`): a capture counts 0 in them, a
+    replay what its capture counted;
   * on the CPU the same copy-in / step / copy-out runs with no capture.
 
 `CallGraph(fn)(*inputs)` is the same machinery for `fn(*inputs) ->
@@ -96,6 +102,15 @@ def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
+def _take_back(counts: dict, before: dict) -> dict:
+    """What `counts` counted since `before` (a copy of it), taken back out
+    of it."""
+    delta = {k: n - before.get(k, 0) for k, n in counts.items()}
+    for k, n in delta.items():
+        counts[k] -= n
+    return delta
+
+
 def _failed_at(exc: BaseException) -> str:
     """The innermost line outside PyTorch in the traceback of `exc`: the
     op of the step that failed."""
@@ -119,14 +134,15 @@ class _Entry:
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: Optional[list] = None        # the captured step's outputs
     out_spec: object = None
-    launches: Optional[dict] = None       # kernel launches a replay makes
+    launches: Optional[tuple] = None      # what a replay counts
 
 
 class _Captures:
     """What the two runners share: the side stream of a run shape's
     warm-ups and capture, the capture itself, and its record."""
 
-    def __init__(self):
+    def __init__(self, counts=()):
+        self.counts = tuple(counts)  # dicts of counters the step adds to
         self.captures = 0            # graphs captured by this runner
         self.capture_ms = []         # host ms of each capture
         self.pool_bytes = []         # device memory each capture reserved
@@ -140,13 +156,14 @@ class _Captures:
     def _capture(self, stream, fn: Callable):
         """`fn()` captured on `stream` into a new CUDA graph, in its own
         memory pool, without making the host wait. Returns (graph, what
-        fn returned, the launches a replay makes). Raises
+        fn returned, what a replay counts: `_replayed`'s argument). Raises
         `GraphCaptureError` naming the line that failed."""
         cur = torch.cuda.current_stream(stream.device)
         on_card = stream.device.type == "cuda"
         reserved = torch.cuda.memory_reserved(stream.device) if on_card else 0
         graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
+        before_counts = [dict(c) for c in self.counts]
         stream.wait_stream(cur)
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
@@ -163,7 +180,9 @@ class _Captures:
                     f"{type(exc).__name__}: {exc}") from exc
             finally:
                 # what the Python counted launched nothing yet
-                launches = _kernels.take_back_launches(before)
+                launches = (_kernels.take_back_launches(before),
+                            [_take_back(c, b) for c, b in
+                             zip(self.counts, before_counts)])
             try:
                 graph.capture_end()
             except RuntimeError as exc:
@@ -176,6 +195,15 @@ class _Captures:
             if on_card else 0)
         self.captures += 1
         return graph, out, launches
+
+    def _replayed(self, launches) -> None:
+        """Count one replay: the kernel launches and the counts its
+        capture recorded."""
+        kernels, counted = launches
+        _kernels.add_launches(kernels)
+        for c, delta in zip(self.counts, counted):
+            for k, n in delta.items():
+                c[k] += n
 
     @staticmethod
     def _on_side(stream, fn: Callable):
@@ -197,8 +225,8 @@ class StepGraph(_Captures):
 
     warmup = 2           # eager frames before a run shape's capture
 
-    def __init__(self, body: Callable):
-        super().__init__()
+    def __init__(self, body: Callable, counts=()):
+        super().__init__(counts)
         self.body = body
         self._entries = {}
 
@@ -239,7 +267,7 @@ class StepGraph(_Captures):
                     raise
             if entry.graph is not None:
                 entry.graph.replay()
-                _kernels.add_launches(entry.launches)
+                self._replayed(entry.launches)
                 outs, out_spec = entry.outputs, entry.out_spec
             else:
                 entry.warm += 1
@@ -289,7 +317,7 @@ class _CallEntry:
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: Optional[list] = None        # static outputs (see the module)
     out_spec: object = None
-    launches: Optional[dict] = None       # kernel launches a replay makes
+    launches: Optional[tuple] = None      # what a replay counts
 
 
 class CallGraph(_Captures):
@@ -299,8 +327,8 @@ class CallGraph(_Captures):
 
     warmup = 1           # eager calls before an input shape's capture
 
-    def __init__(self, fn: Callable):
-        super().__init__()
+    def __init__(self, fn: Callable, counts=()):
+        super().__init__(counts)
         self.fn = fn
         self._entries = {}
 
@@ -328,7 +356,7 @@ class CallGraph(_Captures):
                 raise
         if entry.graph is not None:
             entry.graph.replay()
-            _kernels.add_launches(entry.launches)
+            self._replayed(entry.launches)
         else:
             entry.warm += 1
             outs, out_spec = self._on_side(entry.stream,

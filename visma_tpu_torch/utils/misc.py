@@ -89,25 +89,47 @@ def cholesky_or_nan(S: torch.Tensor, upper: bool = False) -> torch.Tensor:
 _LINALG_LIBRARY = threading.Lock()
 
 
-def cho_solve(B: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
-    """`torch.cholesky_solve(B, L)` (L lower), on cuSOLVER for CUDA
-    tensors. PyTorch's default gives a batched CUDA solve (the gate's
-    per-feature solves, every solve under `Msckf.run_batched`'s vmap) to
-    MAGMA, whose batched potrs allocates device memory itself, which a CUDA
-    graph capture refuses; cuSOLVER's does not. The eager loops take the
-    same library, so that a replayed graph and the eager loop agree bit for
-    bit. PyTorch holds the preferred library process-wide: it is switched
-    for this one call under a lock, so that no other caller here restores
-    it in between. CPU tensors solve with LAPACK and touch nothing."""
-    if not B.is_cuda:
-        return torch.cholesky_solve(B, L)
+@contextlib.contextmanager
+def _on_cusolver():
+    """PyTorch's preferred CUDA linear-algebra library set to cuSOLVER
+    inside the block. PyTorch holds the preference process-wide: it is
+    switched under a lock, so that no other caller here restores it in
+    between."""
     with _LINALG_LIBRARY:
         prev = torch.backends.cuda.preferred_linalg_library()
         torch.backends.cuda.preferred_linalg_library("cusolver")
         try:
-            return torch.cholesky_solve(B, L)
+            yield
         finally:
             torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def cho_solve(B: torch.Tensor, L: torch.Tensor,
+              upper: bool = False) -> torch.Tensor:
+    """`torch.cholesky_solve(B, L, upper)`, on cuSOLVER for CUDA tensors.
+    PyTorch's default gives a batched CUDA solve (the gate's per-feature
+    solves, every solve under `Msckf.run_batched`'s vmap) to MAGMA, whose
+    batched potrs allocates device memory itself, which a CUDA graph
+    capture refuses; cuSOLVER's does not. The eager loops take the same
+    library, so that a replayed graph and the eager loop agree bit for bit
+    whatever a caller set process-wide. CPU tensors solve with LAPACK and
+    touch nothing."""
+    if not B.is_cuda:
+        return torch.cholesky_solve(B, L, upper=upper)
+    with _on_cusolver():
+        return torch.cholesky_solve(B, L, upper=upper)
+
+
+def inv_ex(A: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.inv_ex(A)[0]`: the inverse of each matrix of A, not
+    checked on the host (the reference's inverse does not check its
+    result, and a check would read it back), on cuSOLVER / cuBLAS for CUDA
+    tensors, under the same lock as `cho_solve`, so that a replayed graph
+    and the eager loop take one library."""
+    if not A.is_cuda:
+        return torch.linalg.inv_ex(A)[0]
+    with _on_cusolver():
+        return torch.linalg.inv_ex(A)[0]
 
 
 def as_f32(x, device) -> torch.Tensor:
