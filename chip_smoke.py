@@ -119,6 +119,28 @@ card at the shapes the path gives it:
             Kernels chunk_raster_frame, chunk_raster_batched, depth_edge,
             edge_score, each part's launches held to its schedule.
 
+  scripts   the twins of the repo's scripts through their entry points
+            (`main`), each at a reduced grid: (a) noise_sweep --headline
+            at the VIO scene's settings, its ATE bit for bit the VIO
+            phase's; (b) spawn_sweep over 2 scenes, each with the right
+            meshes retrieved and 4 tracks (bench.py:318-327's retrieval
+            part), every object's error within the worst of the JAX
+            package's own 8-scene sweep (0.239 m, 21.8 deg;
+            docs/SPAWN_SWEEP.md), bench.py's pose part reported, met or
+            not; (c) profile_filter at n = 64, its
+            stages summing to the full step within 10%; (d) profile_cem
+            --trace, each triangle setup as long as the launches the
+            host queues before K4 and one before each K4 of the trace,
+            K4 two launches and edge_score one a CEM iteration; (e)
+            profile_stages over 39 frames; (f) diag_semantic, graphed and
+            eager windows; (g) bench_scaling over 1 (group-less, one nccl
+            rank), 2, 4 and 8 gloo ranks of the card, a GN step's measured
+            all-reduce payload equal to the analytic count (dense; PCG
+            plus its block preconditioner's 30 K floats), less the step's
+            cost scalar; (h) scaling_model to its JSON. Kernels
+            corner_score, lk_track, chunk_raster_frame,
+            chunk_raster_batched, depth_edge, edge_score, each launched.
+
     python3 chip_smoke.py --eager-vs-tree OTHER
 
 holds the eager `VioPipeline.run` of this checkout against that of the
@@ -237,6 +259,21 @@ RENDER_DEPTH_T = (0.1, 0.0, 2.4)     # the chair 2.4 m ahead, in view
 SYN_FRAMES = 4                       # tests/test_cli.py:72-90's flags
 SYN_ITERS, SYN_SAMPLES = 3, 32
 TOOL_POS_GATE_M = 0.15               # tests/test_cli.py:87
+# the scripts phase: the twins of the repo's scripts at reduced grids
+SCRIPT_FILTER_STEPS = 64           # profile_filter --n
+SCRIPT_STAGE_FRAMES = 40           # profile_stages --frames
+SCRIPT_SPAWN_SCENES = 2            # spawn_sweep --scenes (seeds 100-101)
+# the JAX package's own sweep of 8 such scenes (docs/SPAWN_SWEEP.md): its
+# pooled worst translation (m) and rotation (deg) error of any object
+SPAWN_SWEEP_MAX = (0.239, 21.80)
+SCRIPT_CEM = (3, 24)               # profile_cem --iters --samples
+SCRIPT_DIAG = ["--frames", "11", "--warmup", "3", "--window", "8"]
+SCRIPT_SWEEP = ["1", "2", "4", "8"]  # bench_scaling --devices
+SCRIPT_POSES = 16                  # bench_scaling's keyframes a mesh
+SCRIPT_FILTER_TOL = 0.10           # stages' sum against the full step
+# the link scaling_model's run assumes (latency s, bandwidth bytes/s): a
+# stated assumption, not a measurement (PERF.md)
+SCRIPT_LINK = ("1e-6", "4.5e10")
 OVERLAY_AGREE = 0.999                # of the pixels, tests/test_cli.py:203
 OVERLAY_FRAMES = (0, 22, 44)
 # the JAX package's ba_solve on these problems (synthetic_ba_problem with
@@ -2439,7 +2476,7 @@ def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
 
 
 def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
-              iters=BA_ITERS):
+              iters=BA_ITERS, ate_limit=None):
     """The VIO scene through `VioPipeline.run` on `dev` (launch counts set to
     0 just before, read just after), then the trajectory refinement of
     `run_vio --ba dense`: `ba_problem_from_vio` from the tracker's own
@@ -2447,7 +2484,11 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
     The solve runs in turns graphed / eager (`graph_turns`). Gates: ATE of
     the refined trajectory < 2.5 x the filter's + 5 mm
     (tests/test_ba_from_vio.py:150), rotations orthonormal to 1e-4.
-    Returns (launches, numbers)."""
+    `ate_limit(observations, truth)` replaces the ATE gate by the limit it
+    returns: `observations` is (args, kwargs) of `ba_problem_from_vio`
+    without the device, `truth` the ground-truth positions (a CPU test
+    gives the reference's own refined ATE on a scene too small for the
+    gate). Returns (launches, numbers)."""
     import numpy as np
     import torch
 
@@ -2475,12 +2516,12 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
     ref = gwc[1:, :, 3]
 
     t0 = time.time()
-    prob, info = ba_problem_from_vio(
-        outs["obs_ids"].cpu().numpy(), outs["obs_xp"].cpu().numpy(),
-        outs["obs_valid"].cpu().numpy(), R_est, p_est,
-        (cfg.fx, cfg.fy, cfg.cx, cfg.cy), R_bc=cfg.cam_R_bc,
-        p_bc=cfg.cam_p_bc, stride=stride,
-        max_landmarks=2 * cfg.max_tracks * max(N // stride, 1), device=dev)
+    obs_args = (outs["obs_ids"].cpu().numpy(), outs["obs_xp"].cpu().numpy(),
+                outs["obs_valid"].cpu().numpy(), R_est, p_est,
+                (cfg.fx, cfg.fy, cfg.cx, cfg.cy))
+    obs_kw = dict(R_bc=cfg.cam_R_bc, p_bc=cfg.cam_p_bc, stride=stride,
+                  max_landmarks=2 * cfg.max_tracks * max(N // stride, 1))
+    prob, info = ba_problem_from_vio(*obs_args, **obs_kw, device=dev)
     assembly_ms = (time.time() - t0) * 1e3
     check(prob is not None, "VIO -> BA: too few landmarks")
     cost0 = float(total_cost(prob))
@@ -2504,9 +2545,11 @@ def vio_to_ba(dev, scene, levels=4, cell=32, stride=BA_STRIDE,
            "solve_turns": turns_record(turns)}
     check(np.isfinite(p_ba).all(), "VIO -> BA: non-finite trajectory")
     check(res["cost"] < cost0, "VIO -> BA: the cost did not go down")
-    check(res["ate_ba_m"] < 2.5 * res["ate_filter_m"] + 0.005,
+    limit = (2.5 * res["ate_filter_m"] + 0.005 if ate_limit is None
+             else ate_limit((obs_args, obs_kw), ref))
+    check(res["ate_ba_m"] < limit,
           f"VIO -> BA damaged the trajectory: {res['ate_filter_m']} -> "
-          f"{res['ate_ba_m']} m")
+          f"{res['ate_ba_m']} m (limit {limit} m)")
     check(res["orthonormal_err"] < 1e-4,
           f"VIO -> BA rotations off SO(3) by {res['orthonormal_err']}")
     return launches, res
@@ -3055,7 +3098,7 @@ def dist_one_rank(dev, ba_prob, card):
             log=lambda m: log(f"dist: (a) {m}"))
         big, _ = synthetic_ba_problem(*BA_LARGE[:2], 0.5, 0.02, device=dev)
         timing = solver_timing(out)
-        mesh.counts.update(all_reduce=0, all_gather=0)
+        mesh.reset_counts()
         ms = cuda_ms(lambda: sharded_ba_solve(big, mesh, iters=BA_LARGE[2],
                                               solver="auto", cg_iters=40),
                      reps=1, warmup=0)
@@ -3123,7 +3166,7 @@ def dist_graph_turns(mesh):
         counted = {}
 
         def counting(g, call=call, counted=counted):
-            mesh.counts.update(all_reduce=0, all_gather=0)
+            mesh.reset_counts()
             res = call(g)
             counted.setdefault(g, dict(mesh.counts))
             return res
@@ -4333,6 +4376,234 @@ def tools_phase(dev, card, semantic_res):
     return launches
 
 
+def script_counters():
+    """The wrappers of every kernel the script twins reach: K1, K2, K3,
+    K4, depth_edge and edge_score."""
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+
+    return (corner_score, lk_track) + counted_kernels()
+
+
+def script_noise_sweep(main, out_dir, vio_ate):
+    """(a) noise_sweep --headline at the VIO phase's settings (240 frames,
+    motion 1, noise 2, two occluders: render_adversarial_frames' defaults,
+    levels 4, cell 32): its one point's ATE bit for bit the VIO phase's."""
+    _, rec, secs = quiet_main(main, [
+        "--headline", "--frames", str(N_FRAMES), "--motions", "1",
+        "--noises", "2", "--occluders", "2",
+        "--output", os.path.join(out_dir, "noise_sweep.md")])
+    (row,) = rec["rows"]
+    check(row["healthy"], "noise_sweep: the bench point is not healthy")
+    check(row["ate_m"] == vio_ate,
+          f"noise_sweep --headline at the bench settings: ATE "
+          f"{row['ate_m']!r} m, the VIO phase's {vio_ate!r} m")
+    return {"row": row, "seconds": secs}
+
+
+def script_spawn_sweep(main, out_dir):
+    """(b) spawn_sweep over SCRIPT_SPAWN_SCENES scenes (seeds 100+). Gated
+    per scene by the retrieval part of bench.py:318-327's envelope (the
+    right mesh retrieved for every object, 4 tracks, each on its own
+    object) and by the JAX package's own sweep of such scenes: every
+    object's errors within SPAWN_SWEEP_MAX, its pooled worst. The pose part
+    of bench.py's envelope (every translation error < 0.05 m, mean
+    rotation error < 5 deg, worst < 10 deg) is the bench scene's, which
+    the semantic phase gates; on random scenes the JAX package's sweep
+    misses it too (seeds 103, 104 and 107), so here each scene's errors
+    are reported against it, met or not."""
+    import numpy as np
+
+    _, rec, secs = quiet_main(main, [
+        "--scenes", str(SCRIPT_SPAWN_SCENES),
+        "--output", os.path.join(out_dir, "spawn_sweep.md")])
+    rows = rec["rows"]
+    for r in rows:
+        check(r["retrieval_ok"] and r["n_tracks"] == 4
+              and r["gt_covered"] == 4,
+              f"spawn_sweep seed {r['seed']}: retrieved {r['retrieved']} "
+              f"for {r['names']}, {r['n_tracks']} tracks covering "
+              f"{r['gt_covered']}")
+        check(max(r["trans"]) <= SPAWN_SWEEP_MAX[0]
+              and max(r["rot"]) <= SPAWN_SWEEP_MAX[1],
+              f"spawn_sweep seed {r['seed']}: trans {r['trans']} m, rot "
+              f"{r['rot']} deg, beyond the JAX package's sweep's worst "
+              f"{SPAWN_SWEEP_MAX}")
+        r["bench_envelope_met"] = bool(
+            max(r["trans"]) < 0.05 and np.mean(r["rot"]) < 5.0
+            and max(r["rot"]) < 10.0)
+    return {"rows": rows, "seconds": secs}
+
+
+def script_profiles(pf, pc, ps):
+    """(c) profile_filter at n = SCRIPT_FILTER_STEPS: its stages' sum
+    within SCRIPT_FILTER_TOL of the full step; (d) profile_cem --trace:
+    each setup as long as the host's launches before K4 and one before
+    each K4 of the trace, K4 two launches and edge_score one a CEM
+    iteration; (e) profile_stages over SCRIPT_STAGE_FRAMES
+    frames: every stage timed."""
+    out = {}
+    _, f, out["filter_s"] = quiet_main(pf.main, [
+        "--n", str(SCRIPT_FILTER_STEPS), "--reps", "3"])
+    gap = abs(f["stages_sum_ms"] - f["full_ms"]) / f["full_ms"]
+    check(gap <= SCRIPT_FILTER_TOL,
+          f"profile_filter: the stages sum to {f['stages_sum_ms']} ms, the "
+          f"full step {f['full_ms']} ms")
+    check(all(v["captures"] == 1 for v in f["variants"]),
+          "profile_filter: a variant did not capture once")
+    out["filter"] = f
+    iters, samples = SCRIPT_CEM
+    _, c, out["cem_s"] = quiet_main(pc.main, [
+        "--iters", str(iters), "--samples", str(samples), "--reps", "5",
+        "--trace"])
+    # profile_cem raises unless each setup is as long as the launches the
+    # host queues before K4, every K4 follows a whole setup and the traced
+    # dispatches are alike; here: a setup of each shape before each CEM
+    # iteration's two K4 launches, no event left out or counted twice
+    t = c["trace"]
+    ev, n = t["categories_events"], t["dispatches"]
+    check(ev["raster"] == 2 * iters * n
+          and ev["prep"] == iters * n * sum(t["setup_launches"])
+          and sum(ev.values()) == t["events_per_dispatch"] * n,
+          f"profile_cem: events by category {ev} over {n} dispatches of "
+          f"{t['events_per_dispatch']}, setups {t['setup_launches']}")
+    per = c["launches_per_dispatch"]
+    check(per["chunk_raster_batched"] == 2 * iters
+          and per["edge_score"] == iters,
+          f"profile_cem: launches a dispatch {per}, the schedule's K4 "
+          f"{2 * iters} and edge_score {iters}")
+    out["cem"] = c
+    _, st, out["stages_s"] = quiet_main(ps.main, [
+        "--frames", str(SCRIPT_STAGE_FRAMES), "--reps", "2"])
+    check(all(0 < v < float("inf") for v in st["ms_per_frame"].values()),
+          f"profile_stages: {st['ms_per_frame']}")
+    out["stages"] = st
+    return out
+
+
+def script_scaling(bs, sm):
+    """(g) bench_scaling over SCRIPT_SWEEP ranks (the group-less mesh and
+    one nccl rank, then gloo ranks on the card): a GN step's measured
+    all-reduce payload, less its cost scalar, equal to
+    `comm_floats_per_step` for dense, and for PCG to it plus 30 K floats
+    (the (K, 6, 6) block preconditioner the reference's count takes for a
+    6K diagonal); (h) scaling_model to its JSON."""
+    out = {}
+    _, sweep, out["sweep_s"] = quiet_main(bs.main, [
+        "--devices", *SCRIPT_SWEEP, "--reps", "2", "--poses",
+        str(SCRIPT_POSES)])
+    for solver in ("dense", "pcg"):
+        extra = 0 if solver == "dense" else 30 * SCRIPT_POSES
+        for pt in sweep["solvers"][solver]["points"]:
+            m = pt["measured_floats"]
+            check(m["all_reduce"] == pt["comm_floats_per_step"] + extra
+                  and m["all_gather"] == 0,
+                  f"bench_scaling {solver} at {pt['devices']} "
+                  f"({pt['mesh']}): measured {m}, analytic "
+                  f"{pt['comm_floats_per_step']} + {extra}")
+    meshes = {(p["devices"], p["mesh"])
+              for p in sweep["solvers"]["dense"]["points"]}
+    check(meshes == {(1, "group-less"), (1, "nccl")}
+          | {(int(n), "gloo") for n in SCRIPT_SWEEP if n != "1"},
+          f"bench_scaling ran on {sorted(meshes)}")
+    out["sweep"] = sweep
+    _, model, out["model_s"] = quiet_main(sm.main, [
+        "--link-latency-s", SCRIPT_LINK[0], "--link-bandwidth-bytes",
+        SCRIPT_LINK[1], "--hosts", "2", "4", "8", "--reps", "5"])
+    check(set(model["curves"]) == {"dense", "pcg", "submap"},
+          f"scaling_model: {sorted(model['curves'])}")
+    out["model"] = model
+    return out
+
+
+def scripts_phase(dev, card, vio_ate):
+    """The twins of the repo's scripts on the card through their entry
+    points (`main`), each at a reduced grid with its gate (see the
+    parts); diag_semantic's graphed and eager windows run too. Returns
+    the launches of every kernel the phase reached, the counts set to 0
+    just before it and read just after."""
+    import tempfile
+
+    from visma_tpu_torch import bench_scaling
+    from visma_tpu_torch.tools import (diag_semantic, noise_sweep,
+                                       profile_cem, profile_filter,
+                                       profile_stages, scaling_model,
+                                       spawn_sweep)
+
+    t_phase = time.time()
+    counters = script_counters()
+    for k in counters:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        a = script_noise_sweep(noise_sweep.main, d, vio_ate)
+        b = script_spawn_sweep(spawn_sweep.main, d)
+    p = script_profiles(profile_filter, profile_cem, profile_stages)
+    _, rec, diag_s = quiet_main(diag_semantic.main, SCRIPT_DIAG)
+    diag = rec["modes"]
+    check([m["mode"] for m in diag] == ["graph", "eager"]
+          and all(e["t_m"] < 1.0 for m in diag for e in m["errors"]),
+          f"diag_semantic: {diag}")
+    g = script_scaling(bench_scaling, scaling_model)
+    launches = {k.__name__: k.launches for k in counters}
+    for name in ("corner_score", "lk_track", "chunk_raster_frame",
+                 "chunk_raster_batched", "depth_edge", "edge_score"):
+        check(launches[name] > 0, f"scripts: {name} was never launched")
+    f, c = p["filter"], p["cem"]
+    log(f"scripts: (a) noise_sweep --headline at the bench settings: ATE "
+        f"{a['row']['ate_m'] * 100:.3f} cm (the VIO phase's "
+        f"{vio_ate * 100:.3f} cm, bit for bit), churn "
+        f"{a['row']['churn_pct']:.1f}%/frame, displacement mean "
+        f"{a['row']['disp_mean_px']:.1f} / p99 "
+        f"{a['row']['disp_p99_px']:.1f} px, {a['seconds']:.1f} s [{card}]")
+    for r in b["rows"]:
+        log(f"scripts: (b) spawn_sweep seed {r['seed']}: {r['retrieved']} "
+            f"(right), trans {[round(x, 4) for x in r['trans']]} m, rot "
+            f"{[round(x, 2) for x in r['rot']]} deg (the JAX package's "
+            f"sweep's worst {SPAWN_SWEEP_MAX}); bench.py's pose envelope "
+            f"{'met' if r['bench_envelope_met'] else 'NOT MET'}")
+    log(f"scripts: (c) profile_filter n={SCRIPT_FILTER_STEPS}, ms a step "
+        + ", ".join(f"{v['variant']} {v['ms_per_step']:.4f}"
+                    for v in f["variants"])
+        + f"; stages sum {f['stages_sum_ms']:.4f} against the full step "
+        f"{f['full_ms']:.4f} [{card}]")
+    t = c["trace"]
+    log(f"scripts: (d) profile_cem {SCRIPT_CEM[0]}x{SCRIPT_CEM[1]}: best "
+        f"{c['dispatch_ms_best']} ms a dispatch; traced "
+        f"{t['total_us'] / t['dispatches'] / 1e3:.4f} ms a dispatch: "
+        + ", ".join(f"{k} {v / t['dispatches'] / 1e3:.4f}"
+                    for k, v in t["categories_us"].items())
+        + f"; launches a dispatch {c['launches_per_dispatch']} [{card}]")
+    log(f"scripts: (e) profile_stages, ms a frame over "
+        f"{SCRIPT_STAGE_FRAMES - 1} frames: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    p["stages"]["ms_per_frame"].items()) + f" [{card}]")
+    log(f"scripts: (f) diag_semantic: "
+        + "; ".join(f"{m['mode']} windows {[round(x, 2) for x in m['window_ms_per_frame']]} ms/frame, "
+                    f"|t| {[round(e['t_m'], 4) for e in m['errors']]} m, "
+                    f"along-ray {[round(e['along_ray_m'], 4) for e in m['errors']]}"
+                    for m in diag) + f", {diag_s:.1f} s [{card}]")
+    for solver, entry in g["sweep"]["solvers"].items():
+        log(f"scripts: (g) bench_scaling {solver}: "
+            + ", ".join(f"{pt['devices']} {pt['mesh']} "
+                        f"{pt['step_ms']:.3f} ms (floats reduced "
+                        f"{pt['measured_floats']['all_reduce']}, gathered "
+                        f"{pt['measured_floats']['all_gather']}; analytic "
+                        f"{pt['comm_floats_per_step']})"
+                        for pt in entry["points"]) + f" [{card}]")
+    log("scripts: (h) scaling_model, assumed link latency "
+        f"{SCRIPT_LINK[0]} s, bandwidth {SCRIPT_LINK[1]} B/s: "
+        + ", ".join(f"{k} t_compute {v['t_compute_ms']:.4f} ms eff "
+                    f"{[round(q['efficiency'], 4) for q in v['points']]}"
+                    for k, v in g["model"]["curves"].items()))
+    log("scripts: launches " + json.dumps(launches) + f"; phase "
+        f"{time.time() - t_phase:.1f} s")
+    log("scripts: record " + json.dumps(
+        {"noise": a, "spawn": b, "filter": f, "cem": c,
+         "stages": p["stages"], "diag": diag, "sweep": g["sweep"],
+         "model": g["model"]}, default=str))
+    return launches
+
+
 def eager_dump(tree, out):
     """`--eager-dump TREE OUT`, the worker of `--eager-vs-tree`: the VIO
     scene through the eager `VioPipeline.run` of the port in TREE, with 0
@@ -4462,6 +4733,7 @@ def main(argv=None):
     del vio_scene
     eval_phase(dev, card)
     by_path["tools"] = tools_phase(dev, card, sem_res)
+    by_path["scripts"] = scripts_phase(dev, card, vio_ate)
 
     check(sys.modules.get("jax") is None, "jax was imported")
     check(not any(k == "visma_tpu" or k.startswith("visma_tpu.")

@@ -224,10 +224,28 @@ def test_bench_icp_reference():
                                atol=1e-4)
 
 
+# 1-ulp perturbations of the model cloud: the seeds of the reference's own
+# rounding envelope in `test_register_model_to_scene_matches_jax`
+REGISTER_SEEDS = range(1, 8)
+
+
 def test_register_model_to_scene_matches_jax():
-    """test_align.py:202's L-shaped cloud, yawed by 2.4 rad: the same
-    best hypothesis (transformation within 1e-4, equal correspondences),
-    and the reference's own gates (rotation < 0.1 rad, fitness > 0.6)."""
+    """test_align.py:202's L-shaped cloud, yawed by 2.4 rad: the port's
+    best hypothesis is one the reference gives (transformation within
+    1e-4, equal correspondences) and meets the reference's own gates
+    (rotation < 0.1 rad, fitness > 0.6).
+
+    "One the reference gives" is over the cloud as it is and its 1-ulp
+    perturbations (seeds 1-7): the first hypothesis with 500
+    correspondences (yaw 6) has not converged after 30 ICP iterations, and
+    at iteration 14 one query's two nearest targets differ by 2.1e-8 in
+    squared distance, below the 1.5e-7 float32 rounding of
+    |q|^2 + |r|^2 - 2 q.r; which one wins depends on the transformation's
+    last bits (the two packages' differ by 1.7e-6 there, each step as
+    close to a float64 step as the other's). The two outcomes lie 5.3e-3
+    apart, and the reference itself lands on either under a 1-ulp
+    perturbation. Where its outcome does not move, the set holds one
+    transformation and the test is the 1e-4 one."""
     rng = np.random.default_rng(4)
     a = rng.uniform([0, 0, 0], [1.0, 0.2, 0.5], (300, 3))
     b = rng.uniform([0, 0, 0], [0.2, 0.8, 0.5], (200, 3))
@@ -235,12 +253,23 @@ def test_register_model_to_scene_matches_jax():
     R = Rotation.from_euler("z", 2.4).as_matrix()
     scene = (model @ R.T + np.array([0.3, -0.2, 0.0])).astype(np.float32)
     kw = dict(num_yaw=24, max_distance=0.1, voxel=0.05)
-    Tj, rj = JA.register_model_to_scene(model, scene, **kw)
     Tt, rt = TA.register_model_to_scene(model, scene, device="cpu", **kw)
-    np.testing.assert_allclose(Tt, Tj, atol=1e-4)
-    assert rt.correspondences == rj.correspondences
-    assert Rotation.from_matrix(Tt[:3, :3].T @ R).magnitude() < 0.1
-    assert rt.fitness > 0.6
+    refs = []
+    for seed in [0, *REGISTER_SEEDS]:     # up to the first one it matches
+        m = model
+        if seed:
+            ulp = np.random.default_rng(seed).integers(-1, 2, model.shape)
+            m = (model * (1 + ulp * np.float32(2 ** -23))).astype(np.float32)
+        refs.append(JA.register_model_to_scene(m, scene, **kw))
+        if np.abs(Tt - refs[-1][0]).max() <= 1e-4:
+            break
+    else:
+        pytest.fail(f"no reference outcome within 1e-4: "
+                    f"{[np.abs(Tt - T).max() for T, _ in refs]}")
+    assert refs[-1][1].correspondences == rt.correspondences
+    for T, r in [(Tt, rt), refs[0]]:
+        assert Rotation.from_matrix(T[:3, :3].T @ R).magnitude() < 0.1
+        assert r.fitness > 0.6
     rng = np.random.default_rng(3)
     floor = np.column_stack([rng.uniform(-1, 1, 500), rng.uniform(-1, 1, 500),
                              rng.normal(0, 0.01, 500)])

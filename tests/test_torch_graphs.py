@@ -295,7 +295,7 @@ class _StubGraph:
     "captured" (its launches counted, as the Python of a real capture
     counts them), a replay runs nothing."""
 
-    def capture_begin(self):
+    def capture_begin(self, capture_error_mode="global"):
         pass
 
     def capture_end(self):
@@ -407,9 +407,10 @@ def test_mesh_collectives_counted_through_replays(stub_cuda, monkeypatch):
     sg.run(torch.zeros(()), torch.ones(7))
     assert (sg.captures, mesh.counts["all_reduce"]) == (1, 49)
 
-    mesh.counts.update(all_reduce=0)
+    mesh.reset_counts()
     cg = CallGraph(lambda x: step(x, x)[0], counts=(mesh.counts,))
     for _ in range(3):
         cg(torch.ones(()))
-    assert (cg.captures, mesh.counts) == (1, {"all_reduce": 3 * per_step,
-                                              "all_gather": 0})
+    assert (cg.captures, mesh.counts) == (1, {
+        "all_reduce": 3 * per_step, "all_gather": 0,
+        "all_reduce_floats": 3 * per_step, "all_gather_floats": 0})

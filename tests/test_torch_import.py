@@ -61,7 +61,11 @@ def test_imports_with_jax_blocked():
         "          'utils.misc', 'proto.vlslam_pb2', 'io.native_loader',\n"
         "          'cli.render_depth', 'cli.run_semantic', 'cli.visualize',\n"
         "          'cli.generate_depthmaps', 'cli.prepare_sfmlearner',\n"
-        "          'cli.show_2dmap'):\n"
+        "          'cli.show_2dmap', 'bench_scaling', 'tools.common',\n"
+        "          'tools.profile_filter', 'tools.profile_stages',\n"
+        "          'tools.profile_cem', 'tools.diag_semantic',\n"
+        "          'tools.noise_sweep', 'tools.spawn_sweep',\n"
+        "          'tools.scaling_model'):\n"
         "    assert 'visma_tpu_torch.' + m in mods, m\n"
         "bad = [k for k in sys.modules if k.startswith('jax.')\n"
         "       or k.startswith('visma_tpu.')]\n"

@@ -299,7 +299,7 @@ class _StubGraph:
     "captured" (its launches counted, as the Python of a real capture
     counts them), a replay runs nothing."""
 
-    def capture_begin(self):
+    def capture_begin(self, capture_error_mode="global"):
         pass
 
     def capture_end(self):

@@ -91,7 +91,18 @@ def build_blocks(prob: BaProblem, damping, huber_delta: float = 5.0):
     """Per-shard Schur building blocks: Hpp (K,6,6) per-pose Hessian
     partial, bp (K,6), Hll_inv (L,3,3), Hpl (L,K,6,3), bl (L,3). Sums over
     the landmark axis are partial on a landmark shard. `Hll_inv` comes from
-    `utils.misc.inv_ex`, which does not check its result on the host."""
+    `utils.misc.inv_ex`, which does not check its result on the host.
+
+    Each landmark's 3x3 `Hll` is summed and inverted in float64, and the
+    inverse rounded back to the problem's dtype. A landmark seen from two
+    close frames has an `Hll` near rank 2 (condition numbers up to 3e7 on a
+    16 x 128 problem cut into four 5-frame chunks). Summed in float32, the
+    Gram matrix J^T J squares the Jacobian's condition: its weak
+    eigenvalue, and with it the inverse, is then off by up to 30% in the
+    reference's float32 and in the port's alike, and the LM loop's
+    accept/reject follows rounding, not the problem. Everything else stays
+    in the problem's dtype (tests/test_torch_dist.py,
+    `test_submap_owner_is_steady_under_rounding`)."""
     r, Jp, Jl = _residual_jacobians(prob)
     w = _huber_weights(r, huber_delta) * prob.mask          # (L,K)
 
@@ -99,11 +110,12 @@ def build_blocks(prob: BaProblem, damping, huber_delta: float = 5.0):
     Jl_w = Jl * w[..., None, None]
     Hpp = torch.einsum("lkai,lkaj->kij", Jp_w, Jp)
     bp = torch.einsum("lkai,lka->ki", Jp_w, r)
-    eye3 = torch.eye(3, dtype=Jl.dtype, device=Jl.device)
-    Hll = torch.einsum("lkai,lkaj->lij", Jl_w, Jl) + (damping + 1e-6) * eye3
+    eye3 = torch.eye(3, dtype=torch.float64, device=Jl.device)
+    Hll = torch.einsum("lkai,lkaj->lij", Jl_w.double(), Jl.double()) \
+        + (damping + 1e-6) * eye3
     bl = torch.einsum("lkai,lka->li", Jl_w, r)
     Hpl = torch.einsum("lkai,lkaj->lkij", Jp_w, Jl)         # (L,K,6,3)
-    Hll_inv = inv_ex(Hll)                                   # (L,3,3)
+    Hll_inv = inv_ex(Hll).to(Jl.dtype)                      # (L,3,3)
     return Hpp, bp, Hll_inv, Hpl, bl
 
 

@@ -4,11 +4,13 @@ A JAX mesh is a set of devices that one controller drives. Here a mesh is
 a process group: one process a rank, each rank on its own device (or, to
 check the arithmetic on one card, several gloo ranks on that card). The
 two collectives the solvers need are methods of the mesh, and the mesh
-counts them, as the kernels count their launches: set `counts` to zeros
-before a call and read it after. A solver whose steps replay a captured
-CUDA graph hands `counts` to its runner (`utils.graphs`), which counts a
-capture 0 and each replay the collectives its capture made, so the count
-is the same graphed or eager.
+counts them, as the kernels count their launches: `reset_counts()` before
+a call, read `counts` after. `counts` holds the number of each collective
+and the floats each moved from this rank ("all_reduce_floats",
+"all_gather_floats"). A solver whose steps replay a captured CUDA graph
+hands `counts` to its runner (`utils.graphs`), which counts a capture 0
+and each replay what its capture counted, so the counts are the same
+graphed or eager.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from visma_tpu_torch.utils.misc import resolve_device
 
 
 def _zero_counts() -> dict:
-    return {"all_reduce": 0, "all_gather": 0}
+    return {"all_reduce": 0, "all_gather": 0, "all_reduce_floats": 0,
+            "all_gather_floats": 0}
 
 
 @dataclass(eq=False)
@@ -45,6 +48,11 @@ class Mesh:
             raise RuntimeError(
                 f"this process (rank {dist.get_rank()} of the default group)"
                 f" is not in the {self.size}-rank mesh")
+
+    def reset_counts(self) -> None:
+        """Every count to 0 (in place: runners hold the dict)."""
+        for k in self.counts:
+            self.counts[k] = 0
 
     def shard_rank(self) -> int:
         """This rank's place in the mesh; raises on a rank left out."""
@@ -84,6 +92,7 @@ class Mesh:
         tensor; the identity on a one-rank mesh without a group."""
         self._member()
         self.counts["all_reduce"] += 1
+        self.counts["all_reduce_floats"] += t.numel()
         if self.group is None:
             return t
         out = t.clone()
@@ -94,6 +103,7 @@ class Mesh:
         """Every rank's `t`, concatenated along dim 0 in rank order."""
         self._member()
         self.counts["all_gather"] += 1
+        self.counts["all_gather_floats"] += t.numel()
         if self.group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.size)]

@@ -19,10 +19,11 @@ with the same whole problem and gets the whole solution back):
     the rank's device (on one card: two CUDA streams of it);
   * the large instance, 128 poses x 8192 landmarks, `solver="auto"` (past
     PCG_CROSSOVER_K, so PCG with 40 CG iterations) against `ba_solve(8)`,
-    3e-2 m / 2e-3.
-
-Left out: the reference's weak-scaling sweep (`__graft_entry__.py:231-242`)
-stands on `bench_scaling.py`, which the port has no twin of yet.
+    3e-2 m / 2e-3;
+  * the weak-scaling dump (`__graft_entry__.py:228-242`): the sweep of
+    `visma_tpu_torch.bench_scaling` over the meshes of 1, 2, 4 and 8 ranks
+    the group holds, a step time a size and the structural efficiency of
+    each solver, with the measured all-reduce payload of a GN step.
 
     python -m visma_tpu_torch.dryrun [--device cpu]
 
@@ -111,7 +112,7 @@ def solver_parity(mesh, num_poses: int = 32, num_landmarks: int = 2048,
            f"step: max |dp| = {out['step']}")
     oracle, _ = ba_solve(prob, iters=10)
     for name in ("dense", "pcg", "submap"):
-        mesh.counts.update(all_reduce=0, all_gather=0)
+        mesh.reset_counts()
         run = lambda: solve(mesh, prob, name)  # noqa: E731
         (sol, hist), out["ms"][name] = (timer or (lambda f: (f(), None)))(run)
         out["counts"][name] = dict(mesh.counts)
@@ -255,6 +256,34 @@ def large_instance(mesh, num_poses: int = 128, num_landmarks: int = 8192,
     return e, dc
 
 
+def weak_scaling(mesh, reps: int = 3, log=print) -> dict:
+    """The reference's weak-scaling dump: `bench_scaling.run_sweep` over
+    the meshes of 1, 2, 4 and 8 ranks that fit the mesh's group, the three
+    solvers; one line a solver on rank 0. Returns rank 0's sweep (None on
+    the other ranks)."""
+    from visma_tpu_torch.bench_scaling import run_sweep
+
+    sizes = [d for d in (1, 2, 4, 8) if d <= mesh.size]
+    sweep = run_sweep(sizes, ["dense", "pcg", "submap"], reps=reps,
+                      verbose=False, device=mesh.device)
+    if sweep is None:
+        return None
+    log("  weak-scaling sweep (python -m visma_tpu_torch.bench_scaling "
+        "for the full sweep):")
+    for name, entry in sweep["solvers"].items():
+        pts = " ".join(f"{p['devices']}d:{p['step_ms']:.3f}ms"
+                       for p in entry["points"])
+        floats = entry["points"][-1]["measured_floats"]
+        log(f"    {name:7s} {pts}  structural_eff="
+            f"{entry.get('efficiency_structural')}  measured floats "
+            f"{floats['all_reduce']} reduced (+ the cost scalar), "
+            f"{floats['all_gather']} gathered (analytic "
+            f"{entry['points'][-1]['comm_floats_per_step']})")
+    if "note" in sweep:
+        log(f"    ({sweep['note']})")
+    return sweep
+
+
 def dryrun_multichip(mesh, num_poses: int = 32, num_landmarks: int = 2048,
                      large=(128, 8192), log=print, timer=None) -> dict:
     """Every part above on `mesh`, in the reference's order, with its
@@ -265,6 +294,7 @@ def dryrun_multichip(mesh, num_poses: int = 32, num_landmarks: int = 2048,
     out["vio"] = vio_parity(mesh, vio_problem(mesh.device), log=log)
     out["pp"] = pp_parity(mesh.device, log=log)
     out["large"] = large_instance(mesh, *large, log=log)
+    out["sweep"] = weak_scaling(mesh, log=log)
     return out
 
 

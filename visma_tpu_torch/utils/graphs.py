@@ -25,7 +25,11 @@ the same through static buffers:
     capture; those constants are `utils.misc.device_constant`s, never
     freed, since every replay reads them by address), the next frame is
     captured on that stream into a private memory pool and replayed, and
-    every later frame is a replay. The host
+    every later frame is a replay. The capture forbids unsafe CUDA calls
+    on its own thread only ("thread_local"): other threads of the process
+    (NCCL's watchdog and proxy threads, the profiler's) keep running, and
+    under the default "global" mode one such call from them invalidates
+    the capture. The host
     never waits for the device: no `torch.cuda.graph` context (it
     synchronises on entry). A capture that fails raises
     `GraphCaptureError` naming the line of the port that failed; nothing
@@ -167,7 +171,7 @@ class _Captures:
         stream.wait_stream(cur)
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = fn()
             except Exception as exc:
