@@ -15,8 +15,16 @@ card at the shapes the path gives it:
             repeat run (K1 and K2 counted through replays alone), every
             output equal to the eager loop's (graph=False; host ms/frame
             in turns, device busy, ops a frame and idle share of both);
-            kernels corner_score, lk_track (one launch a tracked frame;
-            its per-level entry lk_level is held against its plain version
+            then online: the 239 tracked frames stepped one at a time
+            through VioPipeline.step (one CallGraph over the frame) and
+            its eager twin (graph=False) in turns, the pose read back
+            every frame and not: poses bit-equal to the graphed run's,
+            ATE 0.388 cm, one capture, K1 240 / K2 239 through replays,
+            0 host synchronisations without the readback, within 33 ms a
+            frame with it; FeatureTracker.step and Msckf.step graphed
+            against their eager twins, every output equal; kernels
+            corner_score, lk_track (one launch a tracked frame; its
+            per-level entry lk_level is held against its plain version
             level by level as well).
   semantic  the 4-object chair/desk scene of bench.py:170-207 through
             SemanticMapper.step (detection-driven spawn with retrieval,
@@ -45,7 +53,9 @@ card at the shapes the path gives it:
   slam      the VIO scene again with 16 in-state SLAM landmark slots
             (filter/slam.py); gates: health, ATE < 0.10 m, a live landmark
             with a finite position at the end, INSTATE exported, the VIO
-            phase's launch counts; then 60 frames in Schmidt mode (each
+            phase's launch counts; the online step as in the VIO phase,
+            its poses bit-equal to this run's; then 60 frames in Schmidt
+            mode (each
             landmark keeps its estimate from its promotion on) and
             `run_vio --synthetic 60 --no-imu` (similarity-aligned ATE
             < 0.1 m, tests/test_cli.py:120).
@@ -79,9 +89,13 @@ card at the shapes the path gives it:
   dist      the distributed layer (dist/, no hand kernel of its own, the
             reference computes it in XLA): (c) the VIO scene through
             TwoStagePipeline with both stages on the card (two CUDA
-            streams, chunk 32): poses equal to VioPipeline.run's bit for
-            bit, ATE 0.388 cm, K1 240 / K2 239 on the "pp" path, no more
-            host synchronisations than one stream; (a) an in-process nccl
+            streams, chunk 32, each stage a replayed StepGraph) and its
+            eager twin in turns: poses equal to VioPipeline.run's bit for
+            bit, ATE 0.388 cm, K1 240 / K2 239 on the "pp" path, one
+            capture a stage, no more host synchronisations than one
+            stream, graphed ms a frame below the eager twin's, device
+            busy (the union) and device time from traces begun behind a
+            marker kernel; (a) an in-process nccl
             group of one rank runs the multichip dryrun's twin
             (visma_tpu_torch/dryrun.py, the reference's gates: the step
             within 2e-4 m of ba_step, dense / pcg / submap within 2e-2 /
@@ -127,7 +141,8 @@ card at the shapes the path gives it:
             part), every object's error within the worst of the JAX
             package's own 8-scene sweep (0.239 m, 21.8 deg;
             docs/SPAWN_SWEEP.md), bench.py's pose part reported, met or
-            not; (c) profile_filter at n = 64, its
+            not; (c) profile_filter at n = 64, 5 rounds (each variant
+            captured anew a round, its median round kept), its
             stages summing to the full step within 10%; (d) profile_cem
             --trace, each triangle setup as long as the launches the
             host queues before K4 and one before each K4 of the trace,
@@ -250,9 +265,12 @@ DRILL = (8, 64, 6)
 DRILL_TOL = 1e-6
 PP_CHUNK = 32
 PP_PROFILE_FRAMES = 64            # two chunks
+TRACE_WARM_FRAMES = 4             # a trace's untraced warm run
+TRACE_TAKES = 5                   # takes of a trace that loses records
 # host synchronisations a tracked frame of the VIO step may make (the dist
 # phase's (c) counts them over the whole scene, one stream and two)
 VIO_SYNCS_PER_FRAME = 0
+ONLINE_BUDGET_MS = 33.0           # PERF.md section 1: a frame online
 
 # the tools phase: the command-line tools on the card
 RENDER_DEPTH_T = (0.1, 0.0, 2.4)     # the chair 2.4 m ahead, in view
@@ -261,6 +279,7 @@ SYN_ITERS, SYN_SAMPLES = 3, 32
 TOOL_POS_GATE_M = 0.15               # tests/test_cli.py:87
 # the scripts phase: the twins of the repo's scripts at reduced grids
 SCRIPT_FILTER_STEPS = 64           # profile_filter --n
+SCRIPT_FILTER_REPS = 5             # profile_filter --reps: captures a variant
 SCRIPT_STAGE_FRAMES = 40           # profile_stages --frames
 SCRIPT_SPAWN_SCENES = 2            # spawn_sweep --scenes (seeds 100-101)
 # the JAX package's own sweep of 8 such scenes (docs/SPAWN_SWEEP.md): its
@@ -698,9 +717,10 @@ def vio_scene_inputs():
     return cfg, frames, gwc, imu, gyro, accel, dts
 
 
-def vio_phase(dev, kernels):
-    """Kernels K1, K2 against their plain versions and the VIO bench scene
-    through VioPipeline.run."""
+def vio_phase(dev, kernels, card):
+    """Kernels K1, K2 against their plain versions, the VIO bench scene
+    through VioPipeline.run, then stepped frame by frame (`vio_online`,
+    `step_twins`). Returns ({path: launches}, ATE in m, the scene)."""
     import numpy as np
     import torch
 
@@ -940,7 +960,12 @@ def vio_phase(dev, kernels):
              "images": d_images, "gyro": d_gyro, "accel": d_accel,
              "dts": d_dts}
     vio_graph_vs_eager(dev, scene, pipe, st0, outs)
-    return launches, ate, scene
+    online_launches, online = vio_online(dev, scene, cfg, p_est, card)
+    check(f"{online['ate_cm']:.3f}" == f"{EARLIER_ATE_CM['vio']:.3f}",
+          f"online ATE {online['ate_cm']:.4f} cm != {EARLIER_ATE_CM['vio']}")
+    log("vio online: " + json.dumps(online))
+    return {"vio": launches, "online": online_launches,
+            "step_twins": step_twins(dev, scene, card)}, ate, scene
 
 
 def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
@@ -955,7 +980,6 @@ def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
     the same frames just before."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from visma_tpu_torch.pipeline import VioPipeline
 
@@ -990,6 +1014,7 @@ def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
           "the graphed run differs from its first run")
 
     head = tuple(x[:PP_PROFILE_FRAMES] for x in seq)
+    warm = tuple(x[:TRACE_WARM_FRAMES] for x in seq)
     n = head[0].shape[0]
     prof_res = {}
     for name in ("eager", "graph"):
@@ -999,14 +1024,14 @@ def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
         runs[name].run(st0, *head)
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            runs[name].run(st0, *head)
-            torch.cuda.synchronize()
-        busy, _ = device_busy_ms(prof)
-        check(busy is not None, f"the profiler saw no device work ({name})")
-        ops = len(device_spans(prof))
+        trace = device_trace(lambda: runs[name].run(st0, *head),
+                             lambda: runs[name].run(st0, *warm),
+                             f"the VIO run, {name}")
+        busy, _ = trace.busy_ms()
         prof_res[name] = {"busy_ms_per_frame": busy / n,
-                          "ops_per_frame": ops / n,
+                          "ops_per_frame": len(trace.ops) / n,
+                          "host_launches_per_frame": trace.host_launches / n,
+                          "graph_launches": trace.graph_launches,
                           "host_ms_per_frame": host,
                           "idle_share": 1 - busy / n / host}
     log(f"vio graph against eager, one process, in turns eager / graph / "
@@ -1025,6 +1050,216 @@ def vio_graph_vs_eager(dev, scene, pipe, st0, outs):
     log("vio graph: " + json.dumps({"ms_per_frame": ms, "max_dp_m": max_dp,
                                     "profile": prof_res,
                                     "capture_ms": pipe.run_graph.capture_ms}))
+
+
+def vio_online(dev, scene, cfg, ref, card, label="vio"):
+    """The online caller's frame: the scene's tracked frames stepped one at
+    a time through `VioPipeline.step`, graphed (the default: one
+    CallGraph over the whole frame) and eager (`graph=False`), with the
+    inputs staged on the device, in one process. The first graphed pass
+    (a fresh pipeline, launch counts set to 0 before its `init`) reads the
+    pose back every frame, as an online caller does; then in turns eager /
+    graph / graph / eager with the readback, graph without it, and one
+    more graphed pass without it under `sync_counter`. `ref`: the
+    graphed `VioPipeline.run`'s poses (N, 3) on the host. Gates: every
+    pass's poses bit-equal to `ref` and the final states graph = eager,
+    one capture, none later, K1 N + 1 / K2 N through the replays, 0 host
+    synchronisations without the readback, the graphed frame with the
+    readback within ONLINE_BUDGET_MS. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+    from visma_tpu_torch.pipeline import VioPipeline
+
+    gwc, imu = scene["gwc"], scene["imu"]
+    seq = (scene["images"], scene["gyro"], scene["accel"], scene["dts"])
+    N = seq[0].shape[0]
+    frame0 = torch.as_tensor(scene["frames"][0], device=dev)
+    init = dict(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+    pipes = {"graph": VioPipeline(cfg, levels=4, cell=32),
+             "eager": VioPipeline(cfg, levels=4, cell=32, graph=False)}
+    check(pipes["graph"].step_graph is not None
+          and pipes["eager"].step_graph is None,
+          f"{label} online: graph=None / False did not pick the step")
+    res = {"first_calls_ms": [], "ms_per_frame": {}}
+
+    def online(mode, readback, first=None, count_syncs=False):
+        """One pass over the scene; returns (ms a frame, the poses, the
+        final state). `first`: a list to get the first two calls' ms,
+        each between synchronisations; `count_syncs`: the steps' host
+        synchronisations into res["syncs"] (`init` and the readback of
+        the poses after the last step are outside)."""
+        pipe = pipes[mode]
+        st = pipe.init(frame0, **init)
+        ps = []
+
+        def steps():
+            nonlocal st
+            for i in range(N):
+                t = time.perf_counter()
+                st = pipe.step(st, *(x[i] for x in seq))
+                ps.append(pipe.pose(st)[1] if readback else st.filter.p)
+                if first is not None and i < 2:
+                    torch.cuda.synchronize()
+                    first.append((time.perf_counter() - t) * 1e3)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if count_syncs:
+            res["syncs"] = sync_counter(steps)
+        else:
+            steps()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / N * 1e3
+        p = np.stack(ps) if readback else torch.stack(ps).cpu().numpy()
+        return ms, p, st
+
+    def record(key, mode, readback):
+        ms, p, st = online(mode, readback)
+        res["ms_per_frame"].setdefault(key, []).append(ms)
+        check(np.array_equal(p, ref), f"{label} online: {key} poses differ "
+              f"from the graphed run's, max |dp| {np.abs(p - ref).max()}")
+        return st
+
+    torch.cuda.synchronize()
+    corner_score.launches = 0
+    lk_track.launches = 0
+    res["first_pass_ms_per_frame"], p, _ = online("graph", True,
+                                                  res["first_calls_ms"])
+    launches = {"corner_score": corner_score.launches,
+                "lk_track": lk_track.launches}
+    check(np.array_equal(p, ref), f"{label} online: the first graphed pass "
+          f"differs from the graphed run, max |dp| {np.abs(p - ref).max()}")
+    cg = pipes["graph"].step_graph
+    res["captures"] = cg.captures
+    res["capture_ms"] = cg.capture_ms
+    res["pool_mb"] = [b / 2 ** 20 for b in cg.pool_bytes]
+    finals = {}
+    for key, mode, rb in (("eager_readback", "eager", True),
+                          ("graph_readback", "graph", True),
+                          ("graph_readback", "graph", True),
+                          ("eager_readback", "eager", True),
+                          ("graph", "graph", False)):
+        finals[mode] = record(key, mode, rb)
+    bad = unequal_leaves(finals["graph"], finals["eager"])
+    check(not bad, f"{label} online: graph and eager final states differ: "
+          f"{bad}")
+    online("graph", False, count_syncs=True)
+    check(res["syncs"] == 0, f"{label} online: {res['syncs']} host "
+          "synchronisations in graphed steps after the capture")
+    check(cg.captures == 1, f"{label} online: {cg.captures} captures: not "
+          "one, none after it")
+    check(launches == {"corner_score": N + 1, "lk_track": N},
+          f"{label} online: launches {launches}: not init + one K1 a "
+          "step and one K2 a step")
+    worst = max(res["ms_per_frame"]["graph_readback"])
+    check(worst < ONLINE_BUDGET_MS, f"{label} online: graphed step with the "
+          f"readback {worst:.3f} ms a frame, past {ONLINE_BUDGET_MS}")
+    res["ate_cm"] = float(np.sqrt(np.mean(np.sum(
+        (p - gwc[1:, :, 3]) ** 2, axis=1)))) * 100
+    m = res["ms_per_frame"]
+    log(f"{label} online: VioPipeline.step over {N} frames, one at a time, "
+        f"inputs on the device; ms a frame with the pose read back every "
+        f"frame, in turns eager / graph / graph / eager: "
+        f"{m['eager_readback'][0]:.3f} / {m['graph_readback'][0]:.3f} / "
+        f"{m['graph_readback'][1]:.3f} / {m['eager_readback'][1]:.3f}; "
+        f"graphed without it {m['graph'][0]:.3f}; the first graphed pass "
+        f"{res['first_pass_ms_per_frame']:.3f} "
+        f"(its first two calls {res['first_calls_ms'][0]:.1f} ms eager and "
+        f"{res['first_calls_ms'][1]:.1f} ms with the capture of "
+        f"{res['capture_ms'][0]:.1f} ms, pool {res['pool_mb'][0]:.1f} MB); "
+        f"{res['captures']} capture, none later; launches {launches}; "
+        f"{res['syncs']} host synchronisations without the readback; poses "
+        f"equal to the graphed run's every frame, ATE {res['ate_cm']:.3f} cm "
+        f"[{card}]")
+    return launches, res
+
+
+def step_twins(dev, scene, card):
+    """`FeatureTracker.step` and `Msckf.step` graphed (the default: a
+    CallGraph each) against their eager twins (`graph=False`) over the
+    scene's first PP_PROFILE_FRAMES tracked frames, the filter on the
+    tracker's observations: every output of every frame equal, one
+    capture each. Returns the graphed tracker's launches (init + its
+    steps)."""
+    import torch
+
+    from visma_tpu_torch.filter.msckf import Msckf
+    from visma_tpu_torch.frontend.detect import corner_score
+    from visma_tpu_torch.frontend.klt_fused import lk_track
+    from visma_tpu_torch.frontend.tracker import FeatureTracker
+
+    cfg, gwc, imu = scene["cfg"], scene["gwc"], scene["imu"]
+    images = scene["images"][:PP_PROFILE_FRAMES]
+    N = images.shape[0]
+    frame0 = torch.as_tensor(scene["frames"][0], device=dev)
+    res = {}
+    trackers = {g: FeatureTracker(max_features=cfg.max_tracks, levels=4,
+                                  cell=32, graph=None if g else False)
+                for g in (True, False)}
+    obs = {}
+    torch.cuda.synchronize()
+    corner_score.launches = 0
+    lk_track.launches = 0
+    for g in (True, False):
+        tr = trackers[g]
+        st = tr.init(frame0)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N):
+            out = tr.step(st, images[i])
+            st = out[0]
+            outs.append(out)
+        torch.cuda.synchronize()
+        res[f"tracker_{'graph' if g else 'eager'}_ms_per_frame"] = (
+            time.perf_counter() - t0) / N * 1e3
+        obs[g] = outs
+        if g:
+            launches = {"corner_score": corner_score.launches,
+                        "lk_track": lk_track.launches}
+    bad = [i for i in range(N) if unequal_leaves(obs[True][i], obs[False][i])]
+    check(not bad, f"FeatureTracker.step graph != eager in frames {bad[:5]}")
+    check(trackers[True].step_graph.captures == 1,
+          "FeatureTracker.step did not capture once")
+    check(launches == {"corner_score": N + 1, "lk_track": N},
+          f"FeatureTracker.step launches {launches}")
+    kfs = {g: Msckf(cfg, graph=None if g else False) for g in (True, False)}
+    # the filter takes float32 (VioPipeline.step converts what it is given)
+    imu_f32 = {k: scene[k].float() for k in ("gyro", "accel", "dts")}
+    states = {}
+    for g, kf in kfs.items():
+        st = kf.init(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
+        seen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (_, ids, xp, valid) in enumerate(obs[True]):
+            st = kf.step(st, {"gyro": imu_f32["gyro"][i],
+                              "accel": imu_f32["accel"][i],
+                              "dts": imu_f32["dts"][i], "ids": ids,
+                              "xp": xp, "valid": valid})
+            seen.append(st)
+        torch.cuda.synchronize()
+        res[f"msckf_{'graph' if g else 'eager'}_ms_per_frame"] = (
+            time.perf_counter() - t0) / N * 1e3
+        states[g] = seen
+    bad = [i for i in range(N) if unequal_leaves(states[True][i],
+                                                 states[False][i])]
+    check(not bad, f"Msckf.step graph != eager in frames {bad[:5]}")
+    check(kfs[True].step_graph.captures == 1, "Msckf.step did not capture "
+          "once")
+    log(f"step twins over {N} frames, graph / eager ms a frame (host clock, "
+        f"no readback): FeatureTracker.step "
+        f"{res['tracker_graph_ms_per_frame']:.3f} / "
+        f"{res['tracker_eager_ms_per_frame']:.3f}, Msckf.step "
+        f"{res['msckf_graph_ms_per_frame']:.3f} / "
+        f"{res['msckf_eager_ms_per_frame']:.3f}; every output equal, one "
+        f"capture each (tracker {trackers[True].step_graph.capture_ms[0]:.1f}"
+        f" ms, filter {kfs[True].step_graph.capture_ms[0]:.1f} ms); the "
+        f"graphed tracker's launches {launches} [{card}]")
+    return launches
 
 
 def raster_work(C, poses, intr, origins, planes, ids, counts, out, sub_px):
@@ -2344,6 +2579,11 @@ def slam_phase(dev, scene, direct_ate, card):
     check(instate > 0, "slam: INSTATE never exported")
     want = {"corner_score": N + 1, "lk_track": N}
     check(launches == want, f"slam launches {launches} != {want}")
+    online_launches, online = vio_online(dev, scene, cfg, p_est, card,
+                                         label="slam")
+    check(online["ate_cm"] == ate * 100, f"slam online: ATE "
+          f"{online['ate_cm']} cm != the run's {ate * 100}")
+    log("slam online: " + json.dumps(online))
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2389,7 +2629,7 @@ def slam_phase(dev, scene, direct_ate, card):
         f"{time.time() - t0:.1f} s: {report}")
     check(report["ate_sim_aligned_m"] < NO_IMU_ATE_GATE_M,
           f"run_vio --no-imu: sim-aligned ATE {report['ate_sim_aligned_m']}")
-    return launches
+    return {"slam": launches, "online_slam": online_launches}
 
 
 def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
@@ -2452,26 +2692,20 @@ def ba_synthetic(dev, num_poses, num_landmarks, iters, ref_cost, ref_p=None,
                               warmup=1)
     out["ms_per_gn_step"] = out["solve_ms"] / iters
     if profile:
-        from torch.autograd import DeviceType
-
         for mode in ("graph", "eager"):
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                ba_solve(prob, iters=iters, graph=mode == "graph")
-                torch.cuda.synchronize()
-            busy, _ = device_busy_ms(prof)
-            check(busy is not None, "the profiler saw no device work")
+            trace = device_trace(
+                lambda: ba_solve(prob, iters=iters, graph=mode == "graph"),
+                what=f"ba_solve, {mode}")
+            busy, _ = trace.busy_ms()
             host = min(turns["ms_per_step"][mode]) * iters
             out[f"{mode}_device_busy_ms"] = busy
             out[f"{mode}_idle_share"] = 1.0 - busy / host
-            ops = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-            out[f"{mode}_device_ops"] = sum(e.count for e in ops)
+            out[f"{mode}_device_ops"] = len(trace.ops)
+            out[f"{mode}_host_launches"] = trace.host_launches
             # where a GN step's device time goes: the largest ops
             out[f"{mode}_top_ms_per_step"] = [
-                (e.key[:60], e.self_device_time_total / 1e3 / iters)
-                for e in sorted(ops, key=lambda e: -e.self_device_time_total)
-                [:6]]
+                (name[:60], us / 1e3 / iters)
+                for name, us, _ in trace.top(6)]
     return out
 
 
@@ -2828,13 +3062,9 @@ def batched_streams(dev, B=BATCH_STREAMS, n_frames=N_FRAMES, max_tracks=96,
     res["capture_ms"] = kf.batched_graph.capture_ms
     # the graph's device time a frame (on the card)
     if dev.type == "cuda":
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            kf.run_batched(start, seg)
-            torch.cuda.synchronize()
-        busy, _ = device_busy_ms(prof)
-        check(busy is not None, "the profiler saw no device work")
-        res["graph_device_busy_ms_per_frame"] = busy / segment
+        trace = device_trace(lambda: kf.run_batched(start, seg),
+                             what="run_batched")
+        res["graph_device_busy_ms_per_frame"] = trace.busy_ms()[0] / segment
     return res
 
 
@@ -2948,50 +3178,41 @@ def free_port():
         return s.getsockname()[1]
 
 
-def device_spans(prof):
-    """The (start, end) of every device operation of a torch.profiler run:
-    kernels, copies and sets (also those a CUDA graph replays), not the
-    record_function ranges the trace also projects onto the device."""
-    from torch.autograd import DeviceType
+def device_trace(fn, warm=None, what=""):
+    """fn() traced on the card by `utils.trace.traced`: behind an untraced
+    warm call (`warm`, else fn itself) and a marker kernel, since late in
+    a process torch.profiler drops a trace's first device records; the
+    traced device ops held to the host's launches (`Trace.check`) and
+    both logged. A trace that lost device records is taken again, up to
+    TRACE_TAKES takes, each loss logged; TRACE_TAKES losses raise.
+    `Trace.busy_ms()` gives (the union of the device intervals, their
+    sum) in ms: the union counts time two streams overlap once."""
+    from visma_tpu_torch.utils.trace import traced
 
-    return sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and e.key not in ("frontend", "filter")
-                  and e.time_range.end > e.time_range.start)
-
-
-def device_busy_ms(prof):
-    """(union of the device intervals, sum of the device times) in ms from
-    a torch.profiler run (`device_spans`); the union counts time two
-    streams overlap once. None where the trace holds no device event."""
-    spans = device_spans(prof)
-    if not spans:
-        return None, None
-    union, total, lo, hi = 0.0, 0.0, *spans[0]
-    for a, b in spans:
-        total += b - a
-        if a > hi:
-            union += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    return (union + hi - lo) / 1e3, total / 1e3
+    trace = traced(fn, warm, annotations=("frontend", "filter"),
+                   takes=TRACE_TAKES)
+    for line in trace.lost:
+        log(f"  trace of {what}, a take that lost records: {line}")
+    log(f"  trace of {what}: {trace.check()}")
+    check(trace.ops, f"the profiler saw no device work ({what})")
+    return trace
 
 
 def pp_two_streams(dev, scene, chunk=PP_CHUNK):
     """(c) The VIO scene through `TwoStagePipeline` with both stages on
-    `dev` (two CUDA streams of the card), launch counts set to 0 just
-    before and read just after, against `VioPipeline.run` in the same
-    process: max |dp| = 0.0, no more host synchronisations than one
-    stream. Host ms a frame of both runs (the VIO phase warmed the path up)
-    and the device time over a profiled run of each over the first
-    PP_PROFILE_FRAMES frames. Returns (launches, numbers, the
-    single-stream outputs)."""
+    `dev` (two CUDA streams of the card), each stage a `StepGraph`
+    replayed a frame (the default), launch counts set to 0 just before its
+    first run and read just after, against `VioPipeline.run` and against
+    its eager twin (`graph=False`) in the same process: max |dp| = 0.0 for
+    both, no more host synchronisations than one stream, one capture a
+    stage, and the graphed run's host ms a frame below the eager twin's
+    (in turns eager / graph / eager / graph after the first run; the VIO
+    phase warmed the path up). Device busy (the union of the device
+    intervals) and device time a frame of each over a traced run of the
+    first PP_PROFILE_FRAMES frames (`device_trace`). Returns (launches,
+    numbers, the single-stream outputs)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from visma_tpu_torch.dist.pipeline_pp import TwoStagePipeline
     from visma_tpu_torch.frontend.detect import corner_score
@@ -3003,16 +3224,21 @@ def pp_two_streams(dev, scene, chunk=PP_CHUNK):
     N = seq[0].shape[0]
     frame0 = torch.as_tensor(scene["frames"][0], device=dev)
     init = dict(R0=gwc[0, :, :3], p0=gwc[0, :, 3], v0=imu["v0"])
-    pp = TwoStagePipeline(cfg, dev, dev, levels=4, cell=32, chunk=chunk)
+    pps = {"graph": TwoStagePipeline(cfg, dev, dev, levels=4, cell=32,
+                                     chunk=chunk),
+           "eager": TwoStagePipeline(cfg, dev, dev, levels=4, cell=32,
+                                     chunk=chunk, graph=False)}
+    check(pps["graph"].frontend_graph is not None
+          and pps["graph"].filter_graph is not None
+          and pps["eager"].frontend_graph is None,
+          "TwoStagePipeline's graph argument did not pick the runners")
     pipe = VioPipeline(cfg, levels=4, cell=32, device=dev)
     st0 = pipe.init(frame0, **init)
+    starts = {k: pp.init(frame0, **init) for k, pp in pps.items()}
     torch.cuda.synchronize()
     corner_score.launches = 0
     lk_track.launches = 0
-    pp0 = pp.init(frame0, **init)
-
-    def run_pp():
-        return pp.run(*pp0, *seq)
+    pp0 = pps["graph"].init(frame0, **init)
 
     res = {}
 
@@ -3026,43 +3252,68 @@ def pp_two_streams(dev, scene, chunk=PP_CHUNK):
         res[f"{name}_host_ms_per_frame"] = (time.perf_counter() - t0) / N * 1e3
         return res.pop("out")
 
-    _, fs, out = timed("pp", run_pp)
+    _, fs, out = timed("pp", lambda: pps["graph"].run(*pp0, *seq))
     launches = {"corner_score": corner_score.launches,
                 "lk_track": lk_track.launches}
     _, single = timed("single", lambda: pipe.run(st0, *seq))
     # the single-stream run is a fresh VioPipeline's: its capture is inside
     # the synchronisations counted
     res["single_captures"] = pipe.run_graph.captures if pipe.run_graph else 0
-    p_pp, p_1 = out["p"].cpu().numpy(), single["p"].cpu().numpy()
-    res["max_dp_m"] = float(np.abs(p_pp - p_1).max())
+    turns = {"graph": [], "eager": []}
+    got = {"graph": [out], "eager": []}
+    for name in ("eager", "graph", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name].append(pps[name].run(*starts[name], *seq)[2])
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) / N * 1e3)
+    res["turns_ms_per_frame"] = turns
+    g = pps["graph"]
+    res["captures"] = [g.frontend_graph.captures, g.filter_graph.captures]
+    res["capture_ms"] = g.frontend_graph.capture_ms + g.filter_graph.capture_ms
+    res["pool_mb"] = [b / 2 ** 20 for b in g.frontend_graph.pool_bytes
+                      + g.filter_graph.pool_bytes]
+    p_1 = single["p"].cpu().numpy()
+    res["max_dp_m"] = max(float(np.abs(o["p"].cpu().numpy() - p_1).max())
+                          for o in got["graph"])
+    res["eager_max_dp_m"] = max(float(np.abs(o["p"].cpu().numpy()
+                                              - p_1).max())
+                                for o in got["eager"])
     res["ate_cm"] = float(np.sqrt(np.mean(np.sum(
-        (p_pp - gwc[1:, :, 3]) ** 2, axis=1)))) * 100
+        (out["p"].cpu().numpy() - gwc[1:, :, 3]) ** 2, axis=1)))) * 100
     check(bool(out["healthy"].all()), "two-stage run unhealthy")
     check(fs.p.device.type == dev.type, f"filter stage on {fs.p.device}")
     check(res["max_dp_m"] == 0.0,
           f"two streams != one stream: max |dp| {res['max_dp_m']}")
+    check(res["eager_max_dp_m"] == 0.0, "the eager two-stage run != one "
+          f"stream: max |dp| {res['eager_max_dp_m']}")
+    check(res["captures"] == [1, 1], f"the stages captured "
+          f"{res['captures']} graphs over {1 + len(turns['graph'])} runs: "
+          "not one a stage")
     check(res["pp_syncs"] <= res["single_syncs"],
           f"two-stage run synchronises the host {res['pp_syncs']} times, "
           f"the single-stream run {res['single_syncs']}")
+    check(max(turns["graph"]) < min(turns["eager"]),
+          f"graphed two-stage ms a frame {turns['graph']} not below the "
+          f"eager twin's {turns['eager']}")
 
     # the profiler's bookkeeping of a whole run takes minutes on the host:
-    # trace the device alone over the first PP_PROFILE_FRAMES frames
+    # trace the first PP_PROFILE_FRAMES frames
     head = tuple(x[:PP_PROFILE_FRAMES] for x in seq)
-    for name, fn in (("single", lambda: pipe.run(st0, *head)),
-                     ("pp", lambda: pp.run(*pp0, *head))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        busy, total = device_busy_ms(prof)
-        n = head[0].shape[0]
-        res[f"{name}_profiled_ms_per_frame"] = wall / n
-        res[f"{name}_device_busy_ms_per_frame"] = \
-            None if busy is None else busy / n
-        res[f"{name}_device_time_ms_per_frame"] = \
-            None if total is None else total / n
+    warm = tuple(x[:TRACE_WARM_FRAMES] for x in seq)
+    n = head[0].shape[0]
+    for name, fn in (("single", lambda x: pipe.run(st0, *x)),
+                     ("pp", lambda x: pps["graph"].run(*pp0, *x)),
+                     ("pp_eager", lambda x: pps["eager"].run(
+                         *starts["eager"], *x))):
+        trace = device_trace(lambda: fn(head), lambda: fn(warm),
+                             f"{name} over {n} frames")
+        busy, total = trace.busy_ms()
+        res[f"{name}_device_busy_ms_per_frame"] = busy / n
+        res[f"{name}_device_time_ms_per_frame"] = total / n
+        res[f"{name}_device_ops_per_frame"] = len(trace.ops) / n
+        res[f"{name}_host_launches_per_frame"] = trace.host_launches / n
+        res[f"{name}_graph_launches"] = trace.graph_launches
     return launches, res, single
 
 
@@ -3240,9 +3491,10 @@ def dist_rank_main(rank, world, addr, out_dir, device):
     # stitch make no collective and capture on the card
     from visma_tpu_torch.dist import sharded_ba
 
+    mine = sharded_ba.mesh_key(mesh)
     out["mesh_solver_graphs"] = sum(
-        key[0] is mesh for key in sharded_ba._RUNS) + sum(
-        key is mesh for key in sharded_ba._STEPS)
+        key[0] == mine for key in sharded_ba._RUNS) + sum(
+        key == mine for key in sharded_ba._STEPS)
     out["captures"] = {label: r.captures for label, r in solver_graphs()
                        if r.captures}
     tdist.destroy_process_group()
@@ -3443,21 +3695,33 @@ def dist_phase(dev, vio_scene, card):
 
     t_phase = time.time()
     launches, c, single = pp_two_streams(dev, vio_scene)
+    t = c["turns_ms_per_frame"]
     log(f"dist: (c) two-stage pipeline, both stages on {dev} (two streams, "
-        f"chunk {PP_CHUNK}), {vio_scene['images'].shape[0]} frames: max |p - "
-        f"VioPipeline.run's p| = {c['max_dp_m']}, ATE {c['ate_cm']:.3f} cm, "
-        f"launches {launches}; host ms/frame two-stage "
-        f"{c['pp_host_ms_per_frame']:.3f} against one stream "
-        f"{c['single_host_ms_per_frame']:.3f}; profiled over the first "
-        f"{PP_PROFILE_FRAMES} frames: device busy "
-        f"{c['pp_device_busy_ms_per_frame']} / "
-        f"{c['single_device_busy_ms_per_frame']} ms a frame (kernel time "
-        f"{c['pp_device_time_ms_per_frame']} / "
-        f"{c['single_device_time_ms_per_frame']}) of "
-        f"{c['pp_profiled_ms_per_frame']:.3f} / "
-        f"{c['single_profiled_ms_per_frame']:.3f}; host synchronisations "
-        f"{c['pp_syncs']} / {c['single_syncs']} (the one stream's run "
-        f"captured {c['single_captures']} CUDA graph) [{card}]")
+        f"chunk {PP_CHUNK}, each stage a replayed StepGraph), "
+        f"{vio_scene['images'].shape[0]} frames: max |p - VioPipeline.run's "
+        f"p| = {c['max_dp_m']} (the eager twin's {c['eager_max_dp_m']}), ATE "
+        f"{c['ate_cm']:.3f} cm, launches {launches}; host ms/frame: the "
+        f"first graphed run {c['pp_host_ms_per_frame']:.3f} (captures "
+        f"{c['captures']} in {[round(x, 1) for x in c['capture_ms']]} ms, "
+        f"pools {[round(x, 1) for x in c['pool_mb']]} MB), one stream "
+        f"{c['single_host_ms_per_frame']:.3f}, in turns eager / graph / "
+        f"eager / graph {t['eager'][0]:.3f} / {t['graph'][0]:.3f} / "
+        f"{t['eager'][1]:.3f} / {t['graph'][1]:.3f}; over the first "
+        f"{PP_PROFILE_FRAMES} frames, graphed / eager / one stream: device "
+        f"busy {c['pp_device_busy_ms_per_frame']:.3f} / "
+        f"{c['pp_eager_device_busy_ms_per_frame']:.3f} / "
+        f"{c['single_device_busy_ms_per_frame']:.3f} ms a frame (device time "
+        f"{c['pp_device_time_ms_per_frame']:.3f} / "
+        f"{c['pp_eager_device_time_ms_per_frame']:.3f} / "
+        f"{c['single_device_time_ms_per_frame']:.3f}; device ops "
+        f"{c['pp_device_ops_per_frame']:.1f} / "
+        f"{c['pp_eager_device_ops_per_frame']:.1f} / "
+        f"{c['single_device_ops_per_frame']:.1f} a frame, host launches "
+        f"{c['pp_host_launches_per_frame']:.1f} / "
+        f"{c['pp_eager_host_launches_per_frame']:.1f} / "
+        f"{c['single_host_launches_per_frame']:.1f} a frame); host "
+        f"synchronisations {c['pp_syncs']} / {c['single_syncs']} (the one "
+        f"stream's run captured {c['single_captures']} CUDA graph) [{card}]")
 
     check(f"{c['ate_cm']:.3f}" == f"{EARLIER_ATE_CM['vio']:.3f}",
           f"two-stage ATE {c['ate_cm']:.4f} cm != {EARLIER_ATE_CM['vio']} cm")
@@ -4436,21 +4700,23 @@ def script_spawn_sweep(main, out_dir):
 
 
 def script_profiles(pf, pc, ps):
-    """(c) profile_filter at n = SCRIPT_FILTER_STEPS: its stages' sum
-    within SCRIPT_FILTER_TOL of the full step; (d) profile_cem --trace:
-    each setup as long as the host's launches before K4 and one before
-    each K4 of the trace, K4 two launches and edge_score one a CEM
-    iteration; (e) profile_stages over SCRIPT_STAGE_FRAMES
+    """(c) profile_filter at n = SCRIPT_FILTER_STEPS over
+    SCRIPT_FILTER_REPS rounds, a capture of each variant a round: its
+    stages' sum within SCRIPT_FILTER_TOL of the full step; (d)
+    profile_cem --trace: each setup as long as the host's launches before
+    K4 and one before each K4 of the trace, K4 two launches and
+    edge_score one a CEM iteration; (e) profile_stages over SCRIPT_STAGE_FRAMES
     frames: every stage timed."""
     out = {}
     _, f, out["filter_s"] = quiet_main(pf.main, [
-        "--n", str(SCRIPT_FILTER_STEPS), "--reps", "3"])
+        "--n", str(SCRIPT_FILTER_STEPS),
+        "--reps", str(SCRIPT_FILTER_REPS)])
     gap = abs(f["stages_sum_ms"] - f["full_ms"]) / f["full_ms"]
     check(gap <= SCRIPT_FILTER_TOL,
           f"profile_filter: the stages sum to {f['stages_sum_ms']} ms, the "
           f"full step {f['full_ms']} ms")
-    check(all(v["captures"] == 1 for v in f["variants"]),
-          "profile_filter: a variant did not capture once")
+    check(all(v["captures"] == SCRIPT_FILTER_REPS for v in f["variants"]),
+          "profile_filter: a variant did not capture once a round")
     out["filter"] = f
     iters, samples = SCRIPT_CEM
     _, c, out["cem_s"] = quiet_main(pc.main, [
@@ -4562,7 +4828,9 @@ def scripts_phase(dev, card, vio_ate):
             f"sweep's worst {SPAWN_SWEEP_MAX}); bench.py's pose envelope "
             f"{'met' if r['bench_envelope_met'] else 'NOT MET'}")
     log(f"scripts: (c) profile_filter n={SCRIPT_FILTER_STEPS}, ms a step "
-        + ", ".join(f"{v['variant']} {v['ms_per_step']:.4f}"
+        f"(the median of {SCRIPT_FILTER_REPS} captures; their range) "
+        + ", ".join(f"{v['variant']} {v['ms_per_step']:.4f} "
+                    f"({min(v['rounds_ms']):.4f}-{max(v['rounds_ms']):.4f})"
                     for v in f["variants"])
         + f"; stages sum {f['stages_sum_ms']:.4f} against the full step "
         f"{f['full_ms']:.4f} [{card}]")
@@ -4722,14 +4990,13 @@ def main(argv=None):
                 log("  " + line.strip())
 
     kernels = []
-    vio_launches, vio_ate, vio_scene = vio_phase(dev, kernels)
+    by_path, vio_ate, vio_scene = vio_phase(dev, kernels, card)
     sem_launches, sem_res = semantic_phase(dev, kernels)
-    by_path = {"vio": vio_launches,
-               "semantic": sem_launches,
-               "ingest": ingest_phase(dev, kernels, vio_ate),
-               "slam": slam_phase(dev, vio_scene, vio_ate, card),
-               "ba": ba_phase(dev, vio_scene, card),
-               "pp": dist_phase(dev, vio_scene, card)}
+    by_path.update({"semantic": sem_launches,
+                    "ingest": ingest_phase(dev, kernels, vio_ate),
+                    **slam_phase(dev, vio_scene, vio_ate, card),
+                    "ba": ba_phase(dev, vio_scene, card),
+                    "pp": dist_phase(dev, vio_scene, card)})
     del vio_scene
     eval_phase(dev, card)
     by_path["tools"] = tools_phase(dev, card, sem_res)

@@ -194,6 +194,6 @@ def test_which_meshes_capture(gloo_group, solves, monkeypatch):
     _equal(TS.sharded_ba_solve(prob, cpu_mesh, ITERS, solver="dense"),
            TS.sharded_ba_solve(prob, cpu_mesh, ITERS, solver="dense",
                                graph=False))
-    assert not [k for k in TS._RUNS if k[0] is cpu_mesh]
+    assert not [k for k in TS._RUNS if k[0] == TS.mesh_key(cpu_mesh)]
     monkeypatch.setattr(tmesh.dist, "get_backend", lambda group: "nccl")
     assert gloo.graphed(None) and gloo.graphed(True)

@@ -307,8 +307,9 @@ class _StubGraph:
 
 @pytest.fixture
 def stub_cuda(monkeypatch):
-    """StepGraph's CUDA branches on stand-in streams and graphs."""
-    monkeypatch.setattr(StepGraph, "_side_stream",
+    """The CUDA branches of StepGraph and CallGraph on stand-in streams
+    and graphs."""
+    monkeypatch.setattr(graphs._Captures, "_side_stream",
                         staticmethod(lambda device: _StubStream()))
     monkeypatch.setattr(graphs.torch.cuda, "CUDAGraph", _StubGraph)
     monkeypatch.setattr(graphs.torch.cuda, "current_stream",
@@ -390,8 +391,6 @@ def test_mesh_collectives_counted_through_replays(stub_cuda, monkeypatch):
     from visma_tpu_torch.dist.mesh import make_mesh
     from visma_tpu_torch.utils.graphs import CallGraph
 
-    monkeypatch.setattr(CallGraph, "_side_stream",
-                        staticmethod(lambda device: _StubStream()))
     mesh = make_mesh(device="cpu")
     per_step = 4 + 3
 

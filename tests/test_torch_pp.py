@@ -1,8 +1,9 @@
 """The port's two-stage pipeline (visma_tpu_torch.dist.pipeline_pp) on the
 13-frame 128x160 blob scene of tests/test_pp.py: against the port's own
 `VioPipeline.run`, equal (0.0: the stage boundary changes placement and
-order, not the math), and against the JAX package's `TwoStagePipeline`
-on two of its virtual CPU devices with the windowed tracker on both sides
+order, not the math; each stage eager or a `StepGraph`), and against the
+JAX package's `TwoStagePipeline` on two of its virtual CPU devices with
+the windowed tracker on both sides
 (`fused_klt=False`, the reference's tracker off the TPU), within 1e-6 in
 positions and rotations (measured 2.4e-7 m and 4.2e-7; the whole pipeline
 in tests/test_torch_ingest.py differs by 1.2e-7 m over 11 frames)."""
@@ -80,8 +81,28 @@ def single(scene):
 def test_two_stage_equals_vio_pipeline(scene, single, chunk):
     """Chunks of 1, 5 (not dividing the 12 frames) and 12: poses, health
     and both final states equal `VioPipeline.run`'s."""
+    _assert_equals_single(scene, single, _two_stage(scene, "cpu", chunk))
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 12])
+def test_graphed_two_stage_equals_vio_pipeline(scene, single, chunk):
+    """Each stage a `StepGraph` (graph=True: on the CPU its static buffers
+    without capture), chunks of 1, 5 and 12: equal to `VioPipeline.run`
+    bit for bit; one buffer set a stage, the last, shorter chunk too."""
+    pp = TwoStagePipeline(scene["cfg"], "cpu", "cpu", levels=2, cell=20,
+                          chunk=chunk, graph=True)
+    got = pp.run(*pp.init(scene["frames"][0], **_init_kw(scene)),
+                 *scene["seq"])
+    _assert_equals_single(scene, single, got)
+    assert len(pp.frontend_graph._entries) == len(pp.filter_graph._entries) \
+        == 1
+    assert pp.frontend_graph.captures == pp.filter_graph.captures == 0
+    assert pp.tracker.step_graph is None
+
+
+def _assert_equals_single(scene, single, two_stage):
     final, outs = single
-    tr, fs, got = _two_stage(scene, "cpu", chunk)
+    tr, fs, got = two_stage
     N = len(scene["seq"][0])
     assert got["p"].shape == (N, 3) and got["R"].shape == (N, 3, 3)
     for k in ("R", "p", "healthy"):
@@ -92,9 +113,10 @@ def test_two_stage_equals_vio_pipeline(scene, single, chunk):
     np.testing.assert_array_equal(tr.pos.numpy(), final.tracker.pos.numpy())
 
 
-def test_two_stage_matches_reference(scene):
-    """Against the JAX package's two-device pipeline (chunk 5), both with
-    the windowed tracker."""
+@pytest.fixture(scope="module")
+def reference(scene):
+    """The JAX package's two-device pipeline (chunk 5, the windowed
+    tracker) on the scene."""
     import jax
 
     from visma_tpu.dist.pipeline_pp import TwoStagePipeline as JTwoStage
@@ -105,12 +127,28 @@ def test_two_stage_matches_reference(scene):
     jpp = JTwoStage(JConfig(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, **CFG),
                     devs[0], devs[1], levels=2, cell=20, chunk=5)
     tr0, fs0 = jpp.init(scene["frames"][0], **_init_kw(scene))
-    _, _, ref = jpp.run(tr0, fs0, *scene["seq"])
-    _, _, got = _two_stage(scene, "cpu", 5, fused_klt=False)
+    return jpp.run(tr0, fs0, *scene["seq"])[2]
+
+
+def _assert_matches_reference(got, ref):
     assert np.abs(got["p"].numpy() - np.asarray(ref["p"])).max() <= REF_TOL_M
     assert np.abs(got["R"].numpy() - np.asarray(ref["R"])).max() <= REF_TOL_M
     np.testing.assert_array_equal(got["healthy"].numpy(),
                                   np.asarray(ref["healthy"]))
+
+
+def test_two_stage_matches_reference(scene, reference):
+    """Against the JAX package's two-device pipeline (chunk 5), both with
+    the windowed tracker."""
+    _, _, got = _two_stage(scene, "cpu", 5, fused_klt=False)
+    _assert_matches_reference(got, reference)
+
+
+def test_graphed_two_stage_matches_reference(scene, reference):
+    """The graphed stages (graph=True, chunk 5) against the JAX package's
+    two-device pipeline, both with the windowed tracker."""
+    _, _, got = _two_stage(scene, "cpu", 5, fused_klt=False, graph=True)
+    _assert_matches_reference(got, reference)
 
 
 @pytest.fixture
@@ -121,11 +159,13 @@ def card():
 
 
 @pytest.mark.cuda
-def test_two_streams_equal_one_stream_on_the_card(scene, card):
-    """Both stages on one card, on two CUDA streams: bit for bit the
-    single-stream `VioPipeline.run`, with the hand kernels on the path."""
+@pytest.mark.parametrize("graph", [None, False], ids=["graphed", "eager"])
+def test_two_streams_equal_one_stream_on_the_card(scene, card, graph):
+    """Both stages on one card, on two CUDA streams, each stage a replayed
+    graph (the default) or its eager loop: bit for bit the single-stream
+    `VioPipeline.run`, with the hand kernels on the path."""
     _, outs = _single(scene, card)
-    _, fs, got = _two_stage(scene, card, 5)
+    _, fs, got = _two_stage(scene, card, 5, graph=graph)
     torch.cuda.synchronize()
     for k in ("R", "p", "healthy"):
         np.testing.assert_array_equal(got[k].cpu().numpy(),

@@ -18,7 +18,8 @@ the same seeded inputs:
     count takes the (K, 6, 6) block-Jacobi preconditioner it all_reduces
     for a 6K diagonal;
   * profile_filter's full-step variant, replayed through its StepGraph's
-    buffers, equals the eager `_frame_step` bit for bit.
+    buffers, equals the eager `_frame_step` bit for bit, and a variant's
+    time is the median of its rounds.
 Every twin's entry point wants the card unless given --device cpu, and
 none writes by default into the repository outside build/."""
 import importlib.util
@@ -224,10 +225,13 @@ def test_profile_filter_full_variant_is_the_frame_step():
     for a, b in zip(tree_leaves(final), tree_leaves(want)):
         assert torch.equal(a, b)
     assert float(sums[-1]) == float(want.P.sum())
-    res = pf.profile(cfg, torch.device("cpu"), n=2, reps=1,
+    res = pf.profile(cfg, torch.device("cpu"), n=2, reps=3,
                      log=lambda s: None)
     assert [r["variant"] for r in res["variants"]] \
         == [n for n, _ in pf.variants(cfg)]
+    for r in res["variants"]:             # a round a run of a new graph
+        assert len(r["rounds_ms"]) == 3
+        assert r["ms_per_step"] == sorted(r["rounds_ms"])[1]
     assert res["stages_sum_ms"] == res["variants"][-2]["ms_per_step"]
 
 

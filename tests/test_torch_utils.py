@@ -128,3 +128,46 @@ def test_check_raises_and_metrics_writer_logs(tmp_path, caplog):
                   "chips": 4}
     assert abs(eff - 0.8) < 1e-12 and len(lines) == 3
     assert lines[0] == {"stage": "vio", "frames": 3}
+
+
+def test_trace_union_check_and_takes(monkeypatch):
+    """`utils.trace`: the busy time is the union of the operations'
+    intervals (two streams' overlap counted once) beside their sum; the
+    check holds the operations to the host's launches and the runners'
+    replayed ops (exactly; at least one op a launch of another graph);
+    `traced`
+    takes a trace that fails the check again and raises after `takes`
+    failures."""
+    from visma_tpu_torch.utils import trace as TT
+
+    ops = [("a", 0.0, 10.0), ("b", 5.0, 15.0), ("c", 20.0, 22.0),
+           ("d", 30.0, 30.0)]
+    t = TT.Trace(ops=ops, host_launches=4, graph_launches=0,
+                 host_events=[("frontend", 0.0, 3000.0),
+                              ("frontend", 5000.0, 6000.0)])
+    assert t.busy_ms() == pytest.approx((0.017, 0.022))
+    assert t.check().startswith("4 device ops traced")
+    assert t.top(1) == [("a", 10.0, 1)]
+    assert t.host_ms(("frontend",)) == {"frontend": pytest.approx(4.0)}
+    with pytest.raises(RuntimeError, match="lost device records"):
+        TT.Trace(ops=ops, host_launches=5, graph_launches=0).check()
+    # graphs of other makers: at least one op a launch
+    TT.Trace(ops=ops, host_launches=2, graph_launches=2).check()
+    with pytest.raises(RuntimeError, match="lost device records"):
+        TT.Trace(ops=ops, host_launches=3, graph_launches=2).check()
+    # the runners' replays: exactly the ops their captures recorded
+    assert TT.Trace(ops=ops, host_launches=1, graph_launches=2, replays=2,
+                    replay_ops=3).check().endswith("of 3 device ops")
+    with pytest.raises(RuntimeError, match="lost device records"):
+        TT.Trace(ops=ops, host_launches=1, graph_launches=2, replays=2,
+                 replay_ops=4).check()
+    assert TT.Trace(ops=[], host_launches=0,
+                    graph_launches=0).busy_ms() == (None, None)
+
+    takes = iter([5, 5, 4, 5, 5, 5])
+    monkeypatch.setattr(TT, "_trace", lambda *a: TT.Trace(
+        ops=ops, host_launches=next(takes), graph_launches=0))
+    got = TT.traced(lambda: None)
+    assert got.host_launches == 4 and len(got.lost) == 2
+    with pytest.raises(RuntimeError, match="3 takes"):
+        TT.traced(lambda: None)

@@ -52,9 +52,13 @@ The layout mirrors the reference:
              assembly (numpy)
   pipeline.py  VioPipeline: images + IMU -> trajectory
   utils/graphs.py  StepGraph: the sequence runners' step captured once into
-               a CUDA graph and replayed a frame (graph=False: the loop);
-               CallGraph: a function captured once an input shape and
-               replayed a call (the semantic executors)
+               a CUDA graph and replayed a frame (graph=False: the loop;
+               also each stage of the two-stage pipeline); CallGraph: a
+               function captured once an input shape and replayed a call
+               (VioPipeline.step, Msckf.step, FeatureTracker.step, the
+               semantic executors, the BA steps)
+  utils/trace.py   device traces begun behind a marker kernel, held to the
+               host's launch count
   cli/         undistort_images, run_vio, evaluate, annotate, example_load,
                example_dump
   convert.py   state carried between the reference and the port

@@ -162,7 +162,7 @@ def pcg_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
     graph: None replays a captured graph a GN step where the mesh captures
     (`Mesh.graphed`), False is the eager loop."""
     shard, L = _shard_problem(prob, mesh)
-    run = lm_runner(mesh, (mesh, "pcg", cg_iters),
+    run = lm_runner(mesh, ("pcg", cg_iters),
                     partial(_pcg_step, mesh=mesh, cg_iters=cg_iters), graph)
     sol, hist = _lm_loop(run, shard, total_cost(prob), damping, iters)
     return _gather(sol, prob, L, mesh), hist

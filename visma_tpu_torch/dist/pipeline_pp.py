@@ -15,10 +15,16 @@ the two stages of neighbouring chunks can overlap:
     feature tables cross with non-blocking copies;
   * on the CPU the stages run one after the other, in the same order.
 
-Nothing in `run` reads back to the host. The stage boundary changes
-placement and ordering, not the math: the result equals `VioPipeline.run`
-on the same inputs (tests/test_torch_pp.py; on the card, bit for bit in
-`chip_smoke.py`).
+Each stage is the reference's jit + scan over a chunk (pipeline_pp.py:
+49-74): on a CUDA device a `utils.graphs.StepGraph` made once per
+pipeline, captured once a frame shape (so the last, shorter chunk replays
+the same graph) and replayed once a frame on its stage's stream;
+`graph=False` loops each stage eagerly (`run_eager`). The stacked
+records and final states a stage's runner hands back are marked for the
+other stream like the eager loop's tensors. Nothing in `run` reads back
+to the host. The stage boundary changes placement and ordering, not the
+math: the result equals `VioPipeline.run` on the same inputs
+(tests/test_torch_pp.py; on the card, bit for bit in `chip_smoke.py`).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.msckf import _frame_step
 from visma_tpu_torch.filter.state import init_state
 from visma_tpu_torch.frontend.tracker import FeatureTracker
+from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
 from visma_tpu_torch.utils.misc import (finite_tree, resolve_device,
                                         tree_leaves)
 
@@ -57,17 +64,25 @@ class TwoStagePipeline:
 
     def __init__(self, cfg: FilterConfig, dev_frontend, dev_filter,
                  levels: int = 3, cell: int = 16, klt_radius: int = 5,
-                 chunk: int = 32, fused_klt: bool = None):
+                 chunk: int = 32, fused_klt: bool = None,
+                 graph: bool = None):
         """fused_klt: as `VioPipeline`'s (None or True: the fused LK path;
         False: the windowed tracker, the JAX package's default off the
-        TPU)."""
+        TPU). graph: as `VioPipeline`'s, for each stage on its device
+        (None: a replayed `StepGraph` on a CUDA device, the eager loop on
+        the CPU; False: the eager loops; True: the graphs' static buffers,
+        on the CPU without capture)."""
         self.cfg = cfg
         self.dev_a = resolve_device(dev_frontend)
         self.dev_b = resolve_device(dev_filter)
         self.chunk = chunk
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
-                                      cell=cell, fused=fused_klt)
+                                      cell=cell, fused=fused_klt, graph=graph)
+        self.frontend_graph = (StepGraph(self._frontend_body)
+                               if wants_graph(graph, self.dev_a) else None)
+        self.filter_graph = (StepGraph(self._filter_body)
+                             if wants_graph(graph, self.dev_b) else None)
 
     def init(self, image0, R0=None, p0=None, v0=None):
         tr = self.tracker.init(torch.as_tensor(image0, dtype=torch.float32,
@@ -75,26 +90,30 @@ class TwoStagePipeline:
         fs = init_state(self.cfg, R0=R0, p0=p0, v0=v0, device=self.dev_b)
         return tr, fs
 
+    def _frontend_body(self, tr, image):
+        """The frontend's step: the tracker (its `_step_impl`: a graphed
+        `step` would nest a capture) -> the frame's feature table."""
+        tr, *obs = self.tracker._step_impl(tr, image)
+        return tr, dict(zip(_FEATS, obs))
+
+    def _filter_body(self, fs, frame):
+        fs = _frame_step(self.cfg, fs, frame)
+        return fs, {"R": fs.R, "p": fs.p,
+                    "healthy": finite_tree((fs.R, fs.p, fs.v, fs.bg, fs.ba,
+                                            fs.P))}
+
     def _frontend_chunk(self, tr, images):
         """The tracker over a chunk -> per-frame feature tables, stacked."""
-        feats = []
-        for image in images:
-            tr, *obs = self.tracker.step(tr, image)
-            feats.append(obs)
-        return tr, {k: torch.stack(v) for k, v in zip(_FEATS, zip(*feats))}
+        if self.frontend_graph is None:
+            return run_eager(self._frontend_body, tr, images)
+        return self.frontend_graph.run(tr, images)
 
     def _filter_chunk(self, fs, feats, gyro, accel, dts):
-        R, p, healthy = [], [], []
-        for i in range(gyro.shape[0]):
-            frame = {"gyro": gyro[i], "accel": accel[i], "dts": dts[i],
-                     **{k: feats[k][i] for k in _FEATS}}
-            fs = _frame_step(self.cfg, fs, frame)
-            R.append(fs.R)
-            p.append(fs.p)
-            healthy.append(finite_tree((fs.R, fs.p, fs.v, fs.bg, fs.ba,
-                                        fs.P)))
-        return fs, {"R": torch.stack(R), "p": torch.stack(p),
-                    "healthy": torch.stack(healthy)}
+        frames = {"gyro": gyro, "accel": accel, "dts": dts,
+                  **{k: feats[k] for k in _FEATS}}
+        if self.filter_graph is None:
+            return run_eager(self._filter_body, fs, frames)
+        return self.filter_graph.run(fs, frames)
 
     def _stream(self, dev):
         return torch.cuda.Stream(dev) if dev.type == "cuda" else None

@@ -16,16 +16,20 @@ problem and gets the whole solution back: the poses and costs are
 replicated (equal on every rank bit for bit), the landmark shards are put
 together by one all_gather at the end.
 
-The reference caches its jitted executables per mesh (`_jitted_step`,
-`_jitted_solver`, sharded_ba.py:95-121). Here, where the mesh captures
-(`Mesh.graphed`: the one-rank mesh without a group, an nccl group), the
-step is a `CallGraph` and the LM loop a `StepGraph` a GN step
-(`utils.graphs`), cached per mesh for the life of the process; their
-replays count the mesh's collectives as the eager step does. On a gloo
-group the loop is eager.
+The reference caches its jitted executables by the mesh's value
+(`_jitted_step`, `_jitted_solver`, sharded_ba.py:91-121: `lru_cache(
+maxsize=16)`; a JAX mesh hashes by its devices and axis). Here, where the
+mesh captures (`Mesh.graphed`: the one-rank mesh without a group, an nccl
+group), the step is a `CallGraph` and the LM loop a `StepGraph` a GN step
+(`utils.graphs`), cached the same way: by the mesh's value (`mesh_key`),
+so that two `make_mesh()` calls share one capture, and the 16 most
+recently used entries only; an evicted entry's graph and memory pool go
+with it. A cached runner counts the collectives of the mesh it is called
+with, as the eager step does. On a gloo group the loop is eager.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from functools import partial
 from typing import Callable, Optional, Tuple
 
@@ -117,22 +121,42 @@ def _lm_body(step: Callable, state, _):
 
 # the LM loops' StepGraphs by (mesh, solver, CG iterations) and the
 # sharded step's CallGraph by mesh: the reference's `_jitted_solver`,
-# `_jitted_pcg_solver` and `_jitted_step`, kept for the life of the process
-_RUNS: dict = {}
-_STEPS: dict = {}
+# `_jitted_pcg_solver` and `_jitted_step`, with its `lru_cache`'s size
+_RUNS: OrderedDict = OrderedDict()
+_STEPS: OrderedDict = OrderedDict()
+_CACHE_SIZE = 16                # sharded_ba.py:91, :96 of the reference
+
+
+def mesh_key(mesh: Mesh) -> tuple:
+    """A mesh's value, what its graphs are cached under: equal for two
+    `make_mesh()` calls over the same group and device."""
+    return (mesh.group, mesh.rank, mesh.size, mesh.device, mesh.axis)
+
+
+def _cached(cache: OrderedDict, key: tuple, make: Callable):
+    """cache[key], made by `make()` where missing; past `_CACHE_SIZE`
+    entries the least recently used is dropped, as `lru_cache` drops it."""
+    runner = cache.get(key)
+    if runner is None:
+        runner = cache[key] = make()
+        while len(cache) > _CACHE_SIZE:
+            cache.popitem(last=False)
+    cache.move_to_end(key)
+    return runner
 
 
 def lm_runner(mesh: Mesh, key: tuple, step: Callable,
               graph: Optional[bool]) -> Callable:
     """`run(state, steps)` of the LM loop over `step(shard, damping)`: the
-    replays of its StepGraph, cached under `key` (its mesh first), where
-    the mesh captures (`Mesh.graphed`), else the eager loop."""
+    replays of its StepGraph, cached under the mesh's value and `key`
+    (the solver and its settings), where the mesh captures
+    (`Mesh.graphed`), else the eager loop."""
     body = partial(_lm_body, step)
     if not mesh.graphed(graph):
         return partial(run_eager, body)
-    run = _RUNS.get(key)
-    if run is None:
-        run = _RUNS[key] = StepGraph(body, counts=(mesh.counts,))
+    run = _cached(_RUNS, (mesh_key(mesh), *key), lambda: StepGraph(body))
+    # an entry made by an equal mesh: this one's step and counters
+    run.body, run.counts = body, (mesh.counts,)
     return run.run
 
 
@@ -158,10 +182,9 @@ def sharded_ba_step(prob: BaProblem, mesh: Mesh, damping: float = 1e-3,
     shard, L = _shard_problem(prob, mesh)
     lam = torch.full((), damping, dtype=torch.float32, device=mesh.device)
     if mesh.graphed(graph):
-        call = _STEPS.get(mesh)
-        if call is None:
-            call = _STEPS[mesh] = CallGraph(partial(_step_call, mesh=mesh),
-                                            counts=(mesh.counts,))
+        call = _cached(_STEPS, mesh_key(mesh),
+                       lambda: CallGraph(_step_call))
+        call.fn, call.counts = partial(_step_call, mesh=mesh), (mesh.counts,)
         R, p, X, cost = call(shard, lam)
         new = shard.replace(R=R, p=p, X=X)
     else:
@@ -202,7 +225,7 @@ def sharded_ba_solve(prob: BaProblem, mesh: Mesh, iters: int = 10,
     shard, L = _shard_problem(prob, mesh)
     # the initial cost is the reference's replicated evaluation: every rank
     # holds the whole problem
-    run = lm_runner(mesh, (mesh, "dense"), partial(_sharded_step, mesh=mesh),
+    run = lm_runner(mesh, ("dense",), partial(_sharded_step, mesh=mesh),
                     graph)
     sol, hist = _lm_loop(run, shard, total_cost(prob), damping, iters)
     return _gather(sol, prob, L, mesh), hist

@@ -6,11 +6,12 @@ update); `Msckf.run` runs it over a packed sequence, and
 streams, the reference's `vmap` inside its scan. On a CUDA device both
 capture their step once into a CUDA graph and replay it once a frame
 (`utils.graphs.StepGraph`), the counterpart of the reference's jit +
-`lax.scan`; `Msckf(cfg, graph=False)` loops eagerly. Nothing in a step
-reads a value back to the host, so a run on the GPU queues frames without
-waiting; and no step writes into a freshly made buffer by index (blocks
-are placed with `with_blocks`, `torch.cat`, `torch.where` and out-of-place
-`index_put`), which vmap would refuse.
+`lax.scan`, and `Msckf.step` replays a `utils.graphs.CallGraph` once a
+call, the reference's jitted step; `Msckf(cfg, graph=False)` is eager.
+Nothing in a step reads a value back to the host, so a run on the GPU
+queues frames without waiting; and no step writes into a freshly made
+buffer by index (blocks are placed with `with_blocks`, `torch.cat`,
+`torch.where` and out-of-place `index_put`), which vmap would refuse.
 
 Parity notes (each pinned in tests/test_torch_filter.py):
   * `jnp.argmax` takes the first maximum (msckf.py:49,153): bool masks are
@@ -35,7 +36,8 @@ from visma_tpu_torch.filter.state import FilterState, TrackTable, init_state
 from visma_tpu_torch.filter.update import msckf_update
 from visma_tpu_torch.geom.rotations import hat, rodrigues
 from visma_tpu_torch.proto import FeatureStatus
-from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
+from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
+                                          wants_graph)
 from visma_tpu_torch.utils.misc import (DivergenceError, finite_tree,
                                         resolve_device, with_blocks)
 
@@ -232,14 +234,15 @@ class Msckf:
     """Facade: per-frame step + sequence runners."""
 
     def __init__(self, cfg: FilterConfig, device=None, graph: bool = None):
-        """graph: as `VioPipeline`'s (None: `run` and `run_batched` replay
-        a CUDA graph on a CUDA device and loop eagerly on the CPU; False:
-        eager; True: `StepGraph`'s static buffers, on the CPU without
-        capture)."""
+        """graph: as `VioPipeline`'s (None: `step`, `run` and
+        `run_batched` replay a CUDA graph on a CUDA device and run eagerly
+        on the CPU; False: eager; True: the graphs' static buffers, on the
+        CPU without capture)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self._graph = wants_graph(graph, self.device)
-        # made by the first `run` / `run_batched` that replays a graph
+        # made by the first `step` / `run` / `run_batched` through a graph
+        self.step_graph: Optional[CallGraph] = None
         self.run_graph: Optional[StepGraph] = None
         self.batched_graph: Optional[StepGraph] = None
 
@@ -249,8 +252,17 @@ class Msckf:
     def step(self, state: FilterState, frame: Dict[str, torch.Tensor]
              ) -> FilterState:
         """frame: {gyro (S,3), accel (S,3), dts (S,), ids (F,), xp (F,2),
-        valid (F,)}."""
-        return _frame_step(self.cfg, state, frame)
+        valid (F,)}. Through a graph, one capture per state and frame
+        shape (`num_slam` gives the state another); the caller's state is
+        not modified, and the state returned is the caller's own."""
+        if not self._graph:
+            return _frame_step(self.cfg, state, frame)
+        if self.step_graph is None:
+            self.step_graph = CallGraph(functools.partial(_frame_step,
+                                                          self.cfg))
+        return self.step_graph(state, {k: torch.as_tensor(v,
+                                                          device=self.device)
+                                       for k, v in frame.items()})
 
     def _run_step(self, state: FilterState, frame):
         state = _frame_step(self.cfg, state, frame)

@@ -12,6 +12,7 @@ Parity traps (pinned in tests/test_torch_frontend.py):
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -21,6 +22,7 @@ from visma_tpu_torch.frontend.detect import detect_features
 from visma_tpu_torch.frontend.klt import track_features
 from visma_tpu_torch.frontend.klt_fused import track_features_fused
 from visma_tpu_torch.frontend.pyramid import build_pyramid
+from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 
 
 @dataclass(frozen=True)
@@ -54,17 +56,26 @@ class FeatureTracker:
     """LK tracker with fixed capacity and grid replenishment."""
 
     def __init__(self, max_features: int = 64, levels: int = 3,
-                 radius: int = 5, cell: int = 16, fused: bool = None):
+                 radius: int = 5, cell: int = 16, fused: bool = None,
+                 graph: bool = None):
         """fused: None or True tracks with the fused LK path
         (klt_fused.track_features_fused, one lk_track kernel launch per
         tracked frame); False with the windowed tracker (klt.track_features), the
         JAX package's default off the TPU (tracker.py:40-56): same math and
-        gates, another window size and margin."""
+        gates, another window size and margin.
+        graph: `utils.graphs.wants_graph`'s rule, applied to the image's
+        device at each `step` (the tracker has no device of its own): None
+        replays a CUDA graph on a CUDA device and steps eagerly on the CPU;
+        False steps eagerly; True goes through `CallGraph`'s buffers (on
+        the CPU without capture)."""
         self.max_features = max_features
         self.levels = levels
         self.radius = radius
         self.cell = cell
         self.fused = fused is None or bool(fused)
+        self.graph = graph
+        # made by the first `step` that goes through a graph
+        self.step_graph: Optional[CallGraph] = None
 
     def init(self, image: torch.Tensor) -> TrackerState:
         """Initialize on the first frame: detect only."""
@@ -83,7 +94,16 @@ class FeatureTracker:
                             pyr=pyr)
 
     def step(self, state: TrackerState, image: torch.Tensor):
-        """Track into the new frame; returns (state, ids, xp, valid)."""
+        """Track into the new frame; returns (state, ids, xp, valid). The
+        caller's state is not modified, and the state returned is the
+        caller's own (a graph's outputs are cloned out of it)."""
+        if not wants_graph(self.graph, image.device):
+            return self._step_impl(state, image)
+        if self.step_graph is None:
+            self.step_graph = CallGraph(self._step_impl)
+        return self.step_graph(state, image)
+
+    def _step_impl(self, state: TrackerState, image: torch.Tensor):
         K = self.max_features
         i32 = torch.int32
         cur_pyr = tuple(build_pyramid(image, self.levels))

@@ -7,16 +7,19 @@ replenishment (kernel corner_score), then the MSCKF frame step. The frames
 are undistorted already (image.undistort, kernel bilinear_remap). `run`
 steps over a device-staged sequence: on a CUDA device it captures the step
 into one CUDA graph and replays it once a frame (`utils.graphs.StepGraph`,
-the counterpart of the reference's jit + scan); `graph=False` asks for the
-eager loop. Nothing in a step reads a value back to the host, so the GPU
-is fed without waiting. `step` stays eager: the reference jits it call by
-call, and a graph there would need static state buffers that the caller
-owns.
+the counterpart of the reference's jit + scan). `step`, for a caller that
+gets frames one at a time, is the reference's jitted step (pipeline.py:
+61-66): the whole frame, tracker and filter, is one `utils.graphs.
+CallGraph`, captured once a shape and replayed once a call; the caller's
+state is copied into its buffers and the new state cloned out, so no
+state the caller holds is ever written. `graph=False` asks for the eager
+loop and the eager step. Nothing in a step reads a value back to the
+host, so the GPU is fed without waiting.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.msckf import Msckf, _frame_outputs, _frame_step
 from visma_tpu_torch.filter.state import FilterState, register_pytree
 from visma_tpu_torch.frontend.tracker import FeatureTracker, TrackerState
-from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
+from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
+                                          wants_graph)
 from visma_tpu_torch.utils.misc import resolve_device
 
 
@@ -43,18 +47,20 @@ class VioPipeline:
     def __init__(self, cfg: FilterConfig, levels: int = 3, cell: int = 16,
                  klt_radius: int = 5, fused_klt: bool = None, device=None,
                  graph: bool = None):
-        """graph: None replays `run`'s step from a CUDA graph on a CUDA
-        device and loops it eagerly on the CPU; False always loops
-        eagerly; True always goes through `StepGraph`'s static buffers
+        """graph: None replays `run`'s step and `step` from CUDA graphs
+        on a CUDA device and runs them eagerly on the CPU; False always
+        runs eagerly; True always goes through the graphs' static buffers
         (on the CPU without capture)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tracker = FeatureTracker(max_features=cfg.max_tracks,
                                       levels=levels, radius=klt_radius,
-                                      cell=cell, fused=fused_klt)
+                                      cell=cell, fused=fused_klt, graph=graph)
         self.msckf = Msckf(cfg, device=self.device, graph=graph)
-        self.run_graph = (StepGraph(self._run_step)
-                          if wants_graph(graph, self.device) else None)
+        graphed = wants_graph(graph, self.device)
+        self.run_graph = StepGraph(self._run_step) if graphed else None
+        self.step_graph: Optional[CallGraph] = (
+            CallGraph(self._step) if graphed else None)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -69,8 +75,8 @@ class VioPipeline:
         observations. The two stages are profiler ranges named `frontend`
         and `filter` (visma_tpu_torch/profile_pipeline.py reads them)."""
         with record_function("frontend"):
-            tr_state, ids, xp, valid = self.tracker.step(state.tracker,
-                                                         self._tensor(image))
+            tr_state, ids, xp, valid = self.tracker._step_impl(
+                state.tracker, self._tensor(image))
         with record_function("filter"):
             frame = {"gyro": self._tensor(gyro), "accel": self._tensor(accel),
                      "dts": self._tensor(dts), "ids": ids, "xp": xp,
@@ -82,7 +88,17 @@ class VioPipeline:
     def step(self, state: PipelineState, image, gyro, accel, dts
              ) -> PipelineState:
         """image (H, W) f32 grayscale (undistorted); gyro/accel (S, 3);
-        dts (S,) with 0-padding."""
+        dts (S,) with 0-padding: arrays or tensors (a float32 tensor on
+        the pipeline's device is not copied). Through a graph, one capture
+        per shape, after one eager call."""
+        args = tuple(self._tensor(x) for x in (image, gyro, accel, dts))
+        if self.step_graph is None:
+            return self._step(state, *args)
+        return self.step_graph(state, *args)
+
+    def _step(self, state: PipelineState, image, gyro, accel, dts):
+        """The whole frame step, as the reference jits `step`
+        (pipeline.py:61-66): what `step` captures, or calls eagerly."""
         return self.step_full(state, image, gyro, accel, dts)[0]
 
     def pose(self, state: PipelineState) -> Tuple[np.ndarray, np.ndarray]:

@@ -7,11 +7,14 @@ bench.py:67-88, the first `--frames` frames) and runs `VioPipeline.run`
 over it: by default the graphed run (the step captured once into a CUDA
 graph and replayed a frame), with `--eager` the eager loop
 (`graph=False`). One run warms up (and captures), one is timed with the
-host clock (synchronised), one is traced with torch.profiler. Prints, per
-frame: wall time, device busy time, device operations, the device's idle
-share of the profiler-off run, and the top operators by device and by host
-time. A replay runs no Python, so the graphed run has no `frontend` /
-`filter` ranges: its numbers come from the device operations alone. With
+host clock (synchronised), one is traced with torch.profiler behind an
+untraced run and a marker kernel (`utils.trace.traced`: late in a process
+the profiler drops a trace's first device records), its device ops held
+to the host's launches. Prints, per frame: wall time, device busy time,
+device operations beside the host's count, the device's idle share of the
+profiler-off run, and the top operators by device and by host time. A
+replay runs no Python, so the graphed run has no `frontend` / `filter`
+ranges: its numbers come from the device operations alone. With
 `--eager` it also prints the host time of the step's two ranges and what
 the ranges themselves cost with the profiler off: the eager run with its
 `record_function` spans against the same run with `record_function` bound
@@ -27,14 +30,13 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import visma_tpu_torch.pipeline as pipeline
 from visma_tpu_torch.io.synthetic import SyntheticConfig, make_imu
 from visma_tpu_torch.io.synthetic_images import render_adversarial_frames
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.pipeline import VioPipeline
+from visma_tpu_torch.utils.trace import traced
 
 RANGES = ("frontend", "filter")
 SPAN_REPS = 100_000
@@ -97,19 +99,16 @@ def main(argv=None):
               f"{pipe.run_graph.capture_ms[0]:.1f} ms (host); the first "
               f"run with its warm-up frames took {first_ms:.1f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and e.key not in RANGES]         # kernels, memcpy, memset
-    dev_ms = sum(e.self_device_time_total for e in on_device) / N / 1e3
-    n_ops = sum(e.count for e in on_device) / N
+    trace = traced(run, annotations=RANGES, cpu=args.eager)
+    counts = trace.check() + "".join(
+        f"; a take before lost records: {x}" for x in trace.lost)
+    busy, dev_total = trace.busy_ms()
+    dev_ms, n_ops = busy / N, len(trace.ops) / N
     print(f"frames {N}; wall {wall_ms:.3f} ms/frame through "
           f"VioPipeline.run, {mode} (host clock, synchronised, profiler off)")
+    print(f"trace: {counts}")
     if args.eager:
-        host = {e.key: e.cpu_time_total / N / 1e3 for e in events
-                if e.device_type == DeviceType.CPU and e.key in RANGES}
+        host = {k: ms / N for k, ms in trace.host_ms(RANGES).items()}
         print(f"host time in ranges (profiler on): frontend "
               f"{host.get('frontend', 0.0):.3f} ms/frame, filter "
               f"{host.get('filter', 0.0):.3f} ms/frame")
@@ -140,11 +139,16 @@ def main(argv=None):
               f"spans {q[True][1]:.3f} ({q[True][0]:.3f}-{q[True][2]:.3f}), "
               f"without {q[False][1]:.3f} ({q[False][0]:.3f}-"
               f"{q[False][2]:.3f}) ms/frame")
-    print(f"device busy {dev_ms:.3f} ms/frame ({n_ops:.1f} device "
-          f"ops/frame); idle share {1 - dev_ms / wall_ms:.3f} of the "
-          f"profiler-off run")
-    print(events.table(sort_by="self_device_time_total", row_limit=15))
-    print(events.table(sort_by="self_cpu_time_total", row_limit=15))
+    print(f"device busy {dev_ms:.3f} ms/frame ({dev_total / N:.3f} summed "
+          f"over {n_ops:.1f} device ops/frame); idle share "
+          f"{1 - dev_ms / wall_ms:.3f} of the profiler-off run")
+    print("top device ops (us a frame, count a frame):")
+    for name, us, c in trace.top():
+        print(f"  {us / N:10.2f} {c / N:7.1f}  {name[:90]}")
+    print("top host events by time, nested time included (us a frame, "
+          "count a frame):")
+    for name, us, c in trace.host_top():
+        print(f"  {us / N:10.2f} {c / N:7.1f}  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Where the port's semantic mapper spends a settled frame on the GPU.
 
-    python -m visma_tpu_torch.profile_semantic [--frames 29] [--eager]
+    python -m visma_tpu_torch.profile_semantic [--frames 37] [--eager]
 
 Builds the semantic bench scene (bench.py:170-207: 500x960, the procedural
 chair and desk, 4 objects, `SemanticMapper(roi=(256, 384), cem 5x48,
@@ -8,13 +8,17 @@ settled 3x24, async_frames=16, roi_spawn=True)`), renders its ground-truth
 edge frames with the port's own renderer, spawns from detections on frame
 0, lets the tracks settle for 5 frames, then times the settled steps over
 drained 8-frame windows with the host clock and traces one window with
-torch.profiler. By default the mapper replays its executors' CUDA graphs
+torch.profiler, behind a window run untraced and a marker kernel
+(`utils.trace.traced`: late in a process the profiler drops a trace's
+first device records), its device ops held to the host's launches. By
+default the mapper replays its executors' CUDA graphs
 (captured by `warmup`; a replay runs no Python, so only the mapper's own
 range `semantic.refine` shows host time); with `--eager` it runs them
 eagerly (`graph=False`), with the CEM's ranges. Prints, per settled
 frame: wall time, the host time of the mapper's and the CEM's ranges,
-device busy time, the device's idle share, device operations, and the top
-operators by device and by host time. Needs a CUDA device.
+device busy time, the device's idle share, device operations beside the
+host's count, and the top operators by device and by host time. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -24,8 +28,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from visma_tpu_torch.image.edges import depth_edge
 from visma_tpu_torch.io.procedural import bench_mesh_db
@@ -33,6 +35,7 @@ from visma_tpu_torch.io.synthetic_semantic import (BENCH_INTRINSICS,
                                                    bench_scene, gt_detections)
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.semantic import SemanticMapper
+from visma_tpu_torch.utils.trace import traced
 
 RANGES = ("semantic.refine", "semantic.edt", "semantic.occluders",
           "semantic.raster", "semantic.score")
@@ -42,15 +45,15 @@ WARM = 5
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=WARM + 3 * WINDOW)
+    ap.add_argument("--frames", type=int, default=WARM + 4 * WINDOW)
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager mapper (graph=False), with the "
                          "CEM's ranges")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_semantic: needs a CUDA device")
-    if args.frames < WARM + 2 * WINDOW:
-        raise SystemExit(f"profile_semantic: --frames >= {WARM + 2 * WINDOW}")
+    if args.frames < WARM + 3 * WINDOW:
+        raise SystemExit(f"profile_semantic: --frames >= {WARM + 3 * WINDOW}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -90,26 +93,23 @@ def main(argv=None):
         torch.cuda.synchronize()
 
     walls, i = [], WARM
-    while i + 2 * WINDOW <= args.frames:     # the last window is traced
+    while i + 3 * WINDOW <= args.frames:     # the last two go to the trace
         t0 = time.perf_counter()
         window(i)
         walls.append((time.perf_counter() - t0) / WINDOW * 1e3)
         i += WINDOW
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        window(i)
+    trace = traced(lambda: window(i + WINDOW), warm=lambda: window(i),
+                   annotations=RANGES, cpu=True)
+    counts = trace.check() + "".join(
+        f"; a take before lost records: {x}" for x in trace.lost)
     mapper.finalize()
     terr = [float(np.linalg.norm(mapper.tracks[o].pose_wm[:3, 3]
                                  - T_gt[k][:3, 3]))
             for k, o in enumerate(sorted(mapper.tracks))]
 
-    events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and e.key not in RANGES]         # kernels, memcpy, memset
-    dev_ms = sum(e.self_device_time_total for e in on_device) / WINDOW / 1e3
-    n_ops = sum(e.count for e in on_device) / WINDOW
-    host = {e.key: e.cpu_time_total / WINDOW / 1e3 for e in events
-            if e.device_type == DeviceType.CPU and e.key in RANGES}
+    busy, dev_total = trace.busy_ms()
+    dev_ms, n_ops = busy / WINDOW, len(trace.ops) / WINDOW
+    host = {k: ms / WINDOW for k, ms in trace.host_ms(RANGES).items()}
     wall = min(walls)
     print(f"spawn frame {spawn_ms:.1f} ms; settled windows ms/frame "
           f"{[round(w, 3) for w in walls]} (host clock, drained and "
@@ -117,11 +117,18 @@ def main(argv=None):
           f"{[round(x, 4) for x in terr]} m")
     print("host time in ranges, ms/frame (profiler on): "
           + ", ".join(f"{k} {host.get(k, 0.0):.3f}" for k in RANGES))
-    print(f"device busy {dev_ms:.3f} ms/frame ({n_ops:.0f} device "
-          f"ops/frame); idle share {1 - dev_ms / wall:.3f} of the best "
-          f"profiler-off frame time {wall:.3f} ms")
-    print(events.table(sort_by="self_device_time_total", row_limit=15))
-    print(events.table(sort_by="self_cpu_time_total", row_limit=15))
+    print(f"trace: {counts}")
+    print(f"device busy {dev_ms:.3f} ms/frame ({dev_total / WINDOW:.3f} "
+          f"summed over {n_ops:.0f} device ops/frame); idle share "
+          f"{1 - dev_ms / wall:.3f} of the best profiler-off frame time "
+          f"{wall:.3f} ms")
+    print("top device ops (us a frame, count a frame):")
+    for name, us, c in trace.top():
+        print(f"  {us / WINDOW:10.2f} {c / WINDOW:7.1f}  {name[:90]}")
+    print("top host events by time, nested time included (us a frame, "
+          "count a frame):")
+    for name, us, c in trace.host_top():
+        print(f"  {us / WINDOW:10.2f} {c / WINDOW:7.1f}  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -85,47 +85,23 @@ def build_scene(iters: int, samples: int, sigma, roi, device):
 
 RASTER = "chunk_raster_kernel"      # K4's device kernel (csrc/chunk_raster.cu)
 SCORE = "edge_score_"               # edge_score_tiles, edge_score_finish
-MARK = "spin_kernel"                # torch.cuda._sleep's kernel
-RANGE = "profile_cem.traced"
-# the host's calls that put work on the device
-LAUNCH_API = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
 
 def traced(fn, n: int = 1):
     """(device events, host launch calls) of n calls of fn: the device
     events as (name, us) in the order they ran, the host's calls that
-    queued them as names.
+    queued them as names. Traced by `utils.trace.traced`: behind one call
+    of fn and a marker kernel (the profiler drops a trace's first device
+    records once a process has run for a while: 23 of the setup's 154
+    kernels in chip_smoke.py's full run, H100), the device events held to
+    the host's launches and the replayed graphs' nodes."""
+    from visma_tpu_torch.utils.trace import LAUNCH_API
+    from visma_tpu_torch.utils.trace import traced as trace_of
 
-    The profiler drops the first device records of a session once the
-    process has run for a while (none in a fresh process; 23 of the
-    setup's 154 kernels in chip_smoke.py's full run, H100), so that a
-    trace begun on the work it measures loses that work's first kernels.
-    One call of fn and a marker kernel therefore go first, and only what
-    follows the marker is kept; a trace that lost its marker raises."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        with record_function(RANGE):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    evs = sorted(prof.events(), key=lambda e: e.time_range.start)
-    dev = [e for e in evs if e.device_type.name == "CUDA"
-           and e.name != RANGE]
-    marks = [i for i, e in enumerate(dev) if MARK in e.name]
-    if not marks:
-        raise RuntimeError("profile_cem: the trace lost its marker kernel")
-    span = next(e.time_range for e in evs
-                if e.name == RANGE and e.device_type.name == "CPU")
-    host = [e.name for e in evs if e.device_type.name == "CPU"
-            and e.name.startswith(LAUNCH_API)
-            and span.start <= e.time_range.start <= span.end]
-    return ([(e.name, e.time_range.elapsed_us())
-             for e in dev[marks[-1] + 1:]], host)
+    t = trace_of(lambda: [fn() for _ in range(n)], warm=fn)
+    return ([(name, b - a) for name, a, b in t.ops],
+            [name for name, _, _ in t.host_events
+             if name.startswith(LAUNCH_API)])
 
 
 def setup_sequences(mr, mi, poses, roi, samples: int) -> list:

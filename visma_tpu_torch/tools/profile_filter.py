@@ -7,10 +7,14 @@ IMU on.
 
 Each variant is a cumulative prefix of the frame step. It runs as a
 `StepGraph` over `n` frames whose carry is the filter state itself (every
-step's input depends on the previous output), captured once into a CUDA
-graph on the card and replayed a frame, and is timed with CUDA events
-around the whole run, best of `reps`: ms a step. Successive differences
-are the stages' costs. Where the reference folds a variant's unused
+step's input depends on the previous output), captured into a CUDA graph
+on the card and replayed a frame, and one run is timed with CUDA events
+around the whole run: ms a step. A replayed graph's speed is partly its
+capture's: on an H100 an occasional capture of a prefix replays up to a
+tenth faster than the other captures of it, and keeps that speed. So each
+of `reps` rounds captures every variant anew, the variants in turns, and
+a variant's time is the median of its rounds. Successive differences are
+the stages' costs. Where the reference folds a variant's unused
 results into the carry so XLA cannot drop them, the same fold keeps the
 variants comparable here. On the CPU the same buffers run without
 capture, timed by the host clock.
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 
 import numpy as np
@@ -31,7 +36,7 @@ from visma_tpu_torch.filter.msckf import (_augment, _frame_step, _ingest,
 from visma_tpu_torch.filter.triangulate import triangulate
 from visma_tpu_torch.filter.update import (chi2_gate, feature_jacobians,
                                            msckf_update, nullspace_project)
-from visma_tpu_torch.tools.common import best_ms, card_line
+from visma_tpu_torch.tools.common import card_line, elapsed_ms
 from visma_tpu_torch.utils.graphs import StepGraph
 from visma_tpu_torch.utils.platform import configure_platform
 
@@ -154,16 +159,25 @@ def variant_run(fn, state, frame, n: int):
 
 def profile(cfg: FilterConfig, device, n: int = 512, reps: int = 3,
             log=print) -> dict:
-    """ms a step of every variant and the stage deltas."""
+    """ms a step of every variant (the median over `reps` rounds, each a
+    capture of its own) and the stage deltas."""
     s0, frame = warm_state(cfg, device)
+    named = variants(cfg)
+    rounds = {name: [] for name, _ in named}
+    captures = dict.fromkeys(rounds, 0)
+    for _ in range(reps):
+        for name, fn in named:
+            run, graph = variant_run(fn, s0, frame, n)
+            run()                  # warm-up frames and the capture
+            rounds[name].append(elapsed_ms(run, device) / n)
+            captures[name] += graph.captures
     rows = []
-    for name, fn in variants(cfg):
-        run, graph = variant_run(fn, s0, frame, n)
-        run()                      # warm-up frames and the capture
-        ms = best_ms(run, device, reps) / n
+    for name, ts in rounds.items():
+        ms = statistics.median(ts)
         rows.append({"variant": name, "ms_per_step": ms,
-                     "captures": graph.captures})
-        log(f"{name:30s} {ms:8.4f} ms/step")
+                     "rounds_ms": ts, "captures": captures[name]})
+        log(f"{name:30s} {ms:8.4f} ms/step  (rounds "
+            + " ".join(f"{t:.4f}" for t in ts) + ")")
     deltas, prev = [], 0.0
     for r in rows[:-1]:
         deltas.append({"stage": r["variant"],
@@ -177,7 +191,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=512,
                     help="steps a variant's run replays")
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=3,
+                    help="rounds; each captures every variant anew")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)

@@ -100,7 +100,7 @@ def stage_runs(cfg, pipe, st0, images, gyro, accel, dts, seed: int = 0):
         return body
 
     def tracker_only(s, img):
-        s2, ids, xp, valid = tr.step(s, img)
+        s2, ids, xp, valid = tr._step_impl(s, img)
         return s2, xp
 
     def filt_only(s, fr):

@@ -41,7 +41,11 @@ the same through static buffers:
     preallocated (N, ...) record;
   * a CUDA graph replays kernels without running the Python that counts
     them: the launches a capture records (`_kernels.launch_counts`) are
-    taken back out of the counters and added once a replay. The same holds
+    taken back out of the counters and added once a replay. The device
+    operations a replay runs (the captured graph's kernel, copy and set
+    nodes, read with cuGraphGetNodes at capture) are counted too
+    (`replayed()`), so that a trace of replays can be held to them
+    (utils.trace). The same holds
     for the dicts of counters a runner is given (`counts`: a mesh's
     collectives, `dist.mesh.Mesh.counts`): a capture counts 0 in them, a
     replay what its capture counted;
@@ -75,6 +79,42 @@ _TORCH = str(Path(torch.__file__).parent)
 
 class GraphCaptureError(RuntimeError):
     """A step could not be captured into a CUDA graph."""
+
+
+# graph replays of this process and the device operations they ran
+_REPLAYED = {"graphs": 0, "ops": 0}
+
+
+def replayed() -> dict:
+    """{"graphs": replays, "ops": device operations they ran} so far in
+    this process, over every StepGraph and CallGraph."""
+    return dict(_REPLAYED)
+
+
+def _graph_ops(graph) -> int:
+    """The device operations a replay of `graph` (captured with
+    keep_graph=True) runs: its kernel, copy and set nodes, as libcuda
+    lists them."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc):
+        if rc != 0:
+            raise RuntimeError(f"libcuda returned {rc} reading a "
+                               "captured graph's nodes")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    ok(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)))
+    kind = ctypes.c_int(0)
+    ops = 0
+    for node in nodes:
+        ok(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        ops += kind.value in (0, 1, 2)     # kernel, memcpy, memset
+    return ops
 
 
 def wants_graph(graph: Optional[bool], device: torch.device) -> bool:
@@ -165,7 +205,9 @@ class _Captures:
         cur = torch.cuda.current_stream(stream.device)
         on_card = stream.device.type == "cuda"
         reserved = torch.cuda.memory_reserved(stream.device) if on_card else 0
-        graph = torch.cuda.CUDAGraph()
+        # on the card the graph is kept past its capture to count its nodes
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if on_card \
+            else torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
         before_counts = [dict(c) for c in self.counts]
         stream.wait_stream(cur)
@@ -192,6 +234,9 @@ class _Captures:
             except RuntimeError as exc:
                 raise GraphCaptureError(
                     f"CUDA graph capture failed at its end: {exc}") from exc
+            if on_card:
+                launches += (_graph_ops(graph),)
+                graph.instantiate()
         cur.wait_stream(stream)
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         self.pool_bytes.append(
@@ -201,9 +246,11 @@ class _Captures:
         return graph, out, launches
 
     def _replayed(self, launches) -> None:
-        """Count one replay: the kernel launches and the counts its
-        capture recorded."""
-        kernels, counted = launches
+        """Count one replay: the kernel launches, the counts and (on the
+        card) the device operations its capture recorded."""
+        kernels, counted, *ops = launches
+        _REPLAYED["graphs"] += 1
+        _REPLAYED["ops"] += sum(ops)
         _kernels.add_launches(kernels)
         for c, delta in zip(self.counts, counted):
             for k, n in delta.items():
