@@ -61,14 +61,22 @@ card at the shapes the path gives it:
             < 0.1 m, tests/test_cli.py:120).
   eval      bench.py:341-478's evaluation operating points, built with the
             port's own copies: surface error of 500k samples against the
-            10,164-face chair + desk scene (mean held to the JAX package's
-            on the same samples; the SoA path against the pairwise oracle
-            on 20k of them), ICP at voxel 0.05 / 0.075 m / 30 iterations
-            (fitness >= 0.99, two runs the same bytes), RegisterScenes 5/5;
-            then the evaluate tool on a written tool.json scene (2 chairs +
-            2 desks, a ~500k-point cloud; gates of tests/test_eval.py:165)
-            and the annotate tool on each object's part of that cloud. No
-            hand kernel: the reference computes this path in XLA.
+            10,164-face chair + desk scene (graphed, a StepGraph over
+            6,144-row chunks, and eager in turns by CUDA events, the same
+            bytes, one capture with its pool; mean held to the JAX
+            package's on the same samples; the SoA path against the
+            pairwise oracle on 20k of them), ICP at voxel 0.05 / 0.075 m /
+            30 iterations, point-to-point and point-to-plane, graphed (one
+            captured iteration replayed) and eager in turns: the same
+            bytes, one capture a loop and none later, 0 host
+            synchronisations in the graphed loops (fitness >= 0.99, 728
+            correspondences and rmse within 1e-5 of the JAX package's),
+            RegisterScenes 5/5; then the evaluate tool on a written
+            tool.json scene (2 chairs + 2 desks, a ~500k-point cloud; gates
+            of tests/test_eval.py:165) and the annotate tool on each
+            object's part of that cloud, each 24-yaw sweep one ICP capture.
+            The loops' graphs are dropped at the phase's end. No hand
+            kernel: the reference computes this path in XLA.
   ba        trajectory refinement (ba/, Msckf.run_batched; no hand kernel,
             the reference computes it in XLA): one GN step and a 10-step
             ba_solve at the multichip dryrun's size (32 poses x 2048
@@ -127,9 +135,14 @@ card at the shapes the path gives it:
             (d) visualize --animate on it (45 overlay PNGs; frames 0,
             22, 44 agree with an overlay of the plain render and plain
             depth_edge on 99.9% of the pixels; the static figure too where
-            matplotlib is installed, else reported as not met); (e) the
-            native decoder
-            builds and decodes the sequence as the Python codec does.
+            matplotlib is installed, else reported as not met; every
+            overlay the same bytes as an eager in-process twin's); (e) the
+            native decoder builds and decodes the sequence as the Python
+            codec does; (f) render_depth graphed against eager: the 180
+            ground-truth poses through MultiMeshRenderer and 45 through
+            Renderer in turns, the same bytes, one capture, K3 one a pose
+            through the replays, and after set_stack / set_mesh the new
+            meshes' renders, not the old ones'.
             Kernels chunk_raster_frame, chunk_raster_batched, depth_edge,
             edge_score, each part's launches held to its schedule.
 
@@ -295,6 +308,10 @@ SCRIPT_FILTER_TOL = 0.10           # stages' sum against the full step
 SCRIPT_LINK = ("1e-6", "4.5e10")
 OVERLAY_AGREE = 0.999                # of the pixels, tests/test_cli.py:203
 OVERLAY_FRAMES = (0, 22, 44)
+# renders of the tools phase's (f): MultiMeshRenderer's 180 poses five
+# times in turns and three times after set_stack, Renderer's 45 four times
+# and three times after set_mesh
+RENDER_TURNS = {"multi": 5 + 3, "single": 4 + 3}
 # the JAX package's ba_solve on these problems (synthetic_ba_problem with
 # noise_px 0.5, pose_noise 0.02, seed 0), run on the CPU at commit 18fd3f8:
 # final total_cost, and for the dryrun's problem the solved positions.
@@ -422,10 +439,18 @@ def timed_ms(fn):
 
 
 def solver_graphs():
-    """Every graph runner the refinement solvers have cached so far:
-    [(label, runner)] (the mesh solvers' keyed by their mesh)."""
+    """Every graph runner the refinement solvers and the evaluation loops
+    (ICP, its normals, the surface distance) have cached so far:
+    [(label, runner)] (the mesh solvers' keyed by their mesh, the loops'
+    by their form and shapes)."""
+    import importlib
+
     from visma_tpu_torch.ba import gauss_newton, pose_graph
     from visma_tpu_torch.dist import sharded_ba
+    from visma_tpu_torch.eval import metrics
+
+    # the module: the package attribute `align.icp` is the function
+    icp = importlib.import_module("visma_tpu_torch.align.icp")
 
     out = [("ba_step", gauss_newton._STEP), ("ba_solve", gauss_newton._RUN)]
     out += [(f"pose_graph damping {k}", r)
@@ -433,6 +458,9 @@ def solver_graphs():
     out += [(" ".join(map(str, key[1:])), r)
             for key, r in sharded_ba._RUNS.items()]
     out += [("sharded_ba_step", r) for r in sharded_ba._STEPS.values()]
+    out += [(" ".join(map(str, key)), r)
+            for cache in (icp._RUNS, metrics._RUNS)
+            for key, r in cache.items()]
     return out
 
 
@@ -3984,7 +4012,9 @@ def eval_cli(root, card):
         scan = os.path.join(root, f"{key}.ply")
         save_ply(scan, cloud[near])
         out = os.path.join(root, f"{key}.json")
+        before = [(r, r.captures) for _, r in solver_graphs()]
         fits = annotate.main([scan, cad, name, "--output", out])
+        caps = captures_since(before)
         res = fits[f"{name}_0"]
         with open(out) as fp:
             Ta = np.asarray(json.load(fp)[f"{name}_0"]).reshape(3, 4)
@@ -3996,7 +4026,14 @@ def eval_cli(root, card):
         trans = float(np.linalg.norm(Ta[:, 3] - T[:3, 3]))
         log(f"eval: cli.annotate {key} on {int(near.sum())} points: fitness "
             f"{res.fitness:.3f}, translation {trans:.4f} m, rotation "
-            f"{rot:.4f} rad")
+            f"{rot:.4f} rad; the 24-yaw sweep's ICP captures "
+            f"{[(lb, round(c, 1), round(mb)) for lb, c, mb in caps]}")
+        # one capture a sweep: its 24 ICPs have one shape (none where an
+        # earlier object's sweep had the same shapes)
+        check(len(caps) <= 1 and all(
+            r.captures == 1 for lb, r in solver_graphs()
+            if lb.startswith("icp ")),
+              f"annotate {key}: the yaw sweep captured {caps}")
         check(res.fitness > 0.6, f"annotate {key}: fitness {res.fitness}")
         check(trans < 0.05, f"annotate {key}: translation {trans}")
         check(rot < 0.1, f"annotate {key}: rotation {rot}")
@@ -4005,9 +4042,143 @@ def eval_cli(root, card):
     return eval_s, metrics
 
 
+def surface_graph_turns(P, A, B, C, card):
+    """`_pm_dist` of P against the triangles (A, B, C) graphed (a StepGraph
+    over the chunks: the default on the card) and eager in turns graph /
+    eager / graph / eager by CUDA events: one capture, in the first
+    graphed call, none later; graph and eager the same bytes. Returns the
+    ms of each turn."""
+    import torch
+
+    from visma_tpu_torch.eval.metrics import _pm_dist
+
+    before = [(r, r.captures) for _, r in solver_graphs()]
+    ms = {"graph": [], "eager": []}
+    for i, mode in enumerate(("graph", "eager", "graph", "eager")):
+        ms[mode].append(cuda_ms(
+            lambda g=mode == "graph": _pm_dist(P, A, B, C, graph=g),
+            reps=2, warmup=1))
+        if i == 0:
+            caps = captures_since(before)
+            before = [(r, r.captures) for _, r in solver_graphs()]
+    same = torch.equal(_pm_dist(P, A, B, C), _pm_dist(P, A, B, C,
+                                                      graph=False))
+    later = captures_since(before)
+    log(f"eval: surface distance, {P.shape[0]} points x {A.shape[0]} "
+        f"faces, graphed / eager / graphed / eager: "
+        + " / ".join(f"{ms[m][i]:.3f}" for i in (0, 1) for m in ms)
+        + f" ms by CUDA events (graphed: the first call's capture "
+        f"{', '.join(f'{lb} {c:.1f} ms / {mb:.0f} MB' for lb, c, mb in caps)}"
+        f", none later); the same bytes: {same} [{card}]")
+    check(len(caps) == 1 and not later,
+          f"surface distance captures {caps}, later {later}: not one")
+    check(same, "surface distance: graphed and eager differ")
+    return ms
+
+
+def icp_tensors(res, dev):
+    """An IcpResult as tensors on `dev`, for `graph_turns`."""
+    import torch
+
+    return (torch.as_tensor(res.transformation, device=dev),
+            torch.tensor([res.fitness, res.inlier_rmse], dtype=torch.float64,
+                         device=dev),
+            torch.tensor(res.correspondences, device=dev))
+
+
+def icp_graph_turns(s_dn, s_ok, t_dn, t_ok, kw, card):
+    """`icp` at the bench's operating point, point-to-point and
+    point-to-plane, graphed and eager in turns (`graph_turns`): the same
+    bytes (transformation, fitness, rmse, correspondences), one capture of
+    each loop in the first graphed call (point-to-plane: its normals' too,
+    their one chunk warmed up by two calls before the turns) and none
+    later, no host synchronisation in the graphed loops after
+    their capture (their replays and the final pass alone; `icp` itself
+    reads the target's mask and the result back)."""
+    import importlib
+
+    import torch
+
+    from visma_tpu_torch.utils import graphs
+
+    icp_mod = importlib.import_module("visma_tpu_torch.align.icp")
+    dev = s_dn.device
+    dst = t_dn[t_ok]
+    dv = torch.ones(dst.shape[0], dtype=torch.bool, device=dev)
+    T0 = torch.eye(4, device=dev)
+    for p2p in (False, True):
+        if p2p:
+            # the normals' loop is one chunk on the card (`nn.map_rows`):
+            # its two warm-up chunks are two calls, made before the turns
+            for _ in range(graphs.StepGraph.warmup):
+                icp_mod._estimate_normals(dst, dv, graph=True)
+
+        def loops(p2p=p2p):
+            n = (icp_mod._estimate_normals(dst, dv, graph=True) if p2p
+                 else torch.zeros_like(dst))
+            return icp_mod._icp_core(s_dn, s_ok, dst, dv, n, T0,
+                                     kw["max_distance"], kw["max_iters"],
+                                     p2p, graph=True)
+
+        t = graph_turns(lambda g, p2p=p2p: icp_tensors(icp_mod.icp(
+            s_dn, t_dn, point_to_plane=p2p, graph=g, **kw), dev),
+            kw["max_iters"], sync_call=loops)
+        check(len(t["captures"]) == 1 + p2p,
+              f"ICP (point_to_plane={p2p}) captured {t['captures']}")
+        ms = t["ms_per_step"]
+        name = "point-to-plane" if p2p else "point-to-point"
+        caps = ", ".join(f"{lb} {c:.1f} ms / {mb:.0f} MB"
+                         for lb, c, mb in t["captures"])
+        log(f"eval: ICP {name}, {kw['max_iters']} iterations, ms a call "
+            f"graph / eager / graph / eager "
+            + " / ".join(f"{ms[m][i] * kw['max_iters']:.3f}"
+                         for i in (0, 1) for m in ms)
+            + f" on the host clock (a call's set-up and read-back "
+            f"included); graph and eager the same bytes; first graphed "
+            f"call's captures: {caps}; none later; {t['syncs']} host "
+            f"synchronisations in the graphed loops [{card}]")
+
+
+def icp_cpu_times(s_dn, s_ok, t_dn, t_ok, kw):
+    """The same ICP on the host's CPU, eager, in turns with LAPACK's
+    `svd` (the CPU's form) and with the card's `eig3.kabsch_rotation`:
+    ms a call on the host clock, 3 turns each; both at the JAX package's
+    correspondences and rmse."""
+    import importlib
+
+    import torch
+
+    eig3 = importlib.import_module("visma_tpu_torch.align.eig3")
+    icp_mod = importlib.import_module("visma_tpu_torch.align.icp")
+    cpu = [x.cpu() for x in (s_dn, s_ok, t_dn, t_ok)]
+    args = dict(kw, source_valid=cpu[1], target_valid=cpu[3])
+    capturable = eig3.capturable
+    times = {"lapack": [], "jacobi": []}
+    try:
+        for _ in range(3):
+            for form in times:
+                eig3.capturable = ((lambda t: True) if form == "jacobi"
+                                   else capturable)
+                t0 = time.perf_counter()
+                r = icp_mod.icp(cpu[0], cpu[2], device="cpu", **args)
+                times[form].append((time.perf_counter() - t0) * 1e3)
+                check(r.correspondences == ICP_REF_CORRESPONDENCES
+                      and abs(r.inlier_rmse - ICP_REF_RMSE_M) < 1e-5,
+                      f"ICP on the CPU ({form}) is not the JAX package's")
+    finally:
+        eig3.capturable = capturable
+    log(f"eval: ICP on the host CPU ({torch.get_num_threads()} threads), "
+        f"eager, ms a call with LAPACK's svd / the card's Jacobi rotation "
+        f"in turns: "
+        + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(times["lapack"],
+                                                         times["jacobi"]))
+        + "; both at the JAX package's correspondences and rmse")
+
+
 def eval_phase(dev, card):
     """bench.py:341-478's operating points with the port's copies (surface
     error, ICP, RegisterScenes), then the evaluate and annotate tools."""
+    import importlib
     import tempfile
 
     import numpy as np
@@ -4019,6 +4190,9 @@ def eval_phase(dev, card):
                                               compute_error_metric,
                                               point_mesh_distances)
     from visma_tpu_torch.eval.sampling import sample_mesh
+    from visma_tpu_torch.eval import metrics
+
+    icp_mod = importlib.import_module("visma_tpu_torch.align.icp")
 
     sc = bench_eval_scene()
     # surface error: EVAL_SURFACE_SAMPLES samples against the scene mesh
@@ -4027,7 +4201,8 @@ def eval_phase(dev, card):
     F = torch.as_tensor(sc["Ft"], dtype=torch.int64, device=dev)
     A, B, C = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
     P = torch.as_tensor(pts, dtype=torch.float32, device=dev)
-    surf_ms = cuda_ms(lambda: _pm_dist(P, A, B, C), reps=3, warmup=1)
+    surf = surface_graph_turns(P, A, B, C, card)
+    surf_ms = surf["graph"][1]
     m = compute_error_metric(point_mesh_distances(pts, sc["Vt"], sc["Ft"]))
     sub_pts = sample_mesh(sc["Vs"], sc["Ft"], EVAL_AOS_SAMPLES, seed=0)
     sub = torch.as_tensor(sub_pts, dtype=torch.float32, device=dev)
@@ -4065,17 +4240,21 @@ def eval_phase(dev, card):
           "voxel_downsample: two runs differ")
     kw = dict(max_distance=0.075, max_iters=30, source_valid=s_ok,
               target_valid=t_ok)
+    icp_graph_turns(s_dn, s_ok, t_dn, t_ok, kw, card)
     res = icp(s_dn, t_dn, **kw)
-    times = []
+    times = {"graph": [], "eager": []}
     for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        again = icp(s_dn, t_dn, **kw)
-        times.append((time.time() - t0) * 1e3)
+        for mode in times:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            again = icp(s_dn, t_dn, graph=mode == "graph", **kw)
+            times[mode].append((time.time() - t0) * 1e3)
     log(f"eval: ICP, {len(sc['src'])} samples at voxel 0.05 (cap "
         f"{EVAL_VOXEL_CAP}: {int(s_ok.sum())} / {int(t_ok.sum())} voxels), "
-        f"30 iterations: {np.mean(times):.3f} ms mean, {min(times):.3f} "
-        f"min of 5 on the host clock; fitness {res.fitness:.4f}, rmse "
+        f"30 iterations, graphed (the default) / eager in turns: "
+        f"{np.mean(times['graph']):.3f} / {np.mean(times['eager']):.3f} ms "
+        f"mean, {min(times['graph']):.3f} / {min(times['eager']):.3f} min "
+        f"of 5 on the host clock; fitness {res.fitness:.4f}, rmse "
         f"{res.inlier_rmse * 100:.4f} cm, {res.correspondences} "
         f"correspondences (the JAX package: {ICP_REF_CORRESPONDENCES}, "
         f"{ICP_REF_RMSE_M * 100:.4f} cm; BENCH_r05 with a 4,999-face chair: "
@@ -4087,7 +4266,8 @@ def eval_phase(dev, card):
     check(np.array_equal(res.transformation, again.transformation)
           and res.fitness == again.fitness
           and res.inlier_rmse == again.inlier_rmse,
-          "ICP: two runs differ")
+          "ICP: two runs (graphed, eager) differ")
+    icp_cpu_times(s_dn, s_ok, t_dn, t_ok, kw)
     q = torch.as_tensor(place(sc["src"], res.transformation),
                         dtype=torch.float32, device=dev)
     ref = t_dn[t_ok]
@@ -4107,6 +4287,11 @@ def eval_phase(dev, card):
 
     with tempfile.TemporaryDirectory() as root:
         eval_cli(root, card)
+    # the loops' graphs keep their pools (the surface distance's about
+    # 7 GB): the phases after this one get that memory back
+    icp_mod.release_graphs()
+    metrics.release_graphs()
+    torch.cuda.empty_cache()
 
 
 def counted_kernels():
@@ -4436,7 +4621,9 @@ def tool_visualize(seq, models, root, dev, device_args=()):
     plain render and the plain depth_edge on OVERLAY_AGREE of the pixels.
     Where matplotlib is not installed the static figure cannot be drawn:
     the tool then runs with `--output ''`, --animate alone, and the figure
-    is reported as not drawn. Returns (the tool's seconds, the agreements,
+    is reported as not drawn. --animate's overlays equal those of an
+    in-process eager twin (`visualize.main(graph=False)`) byte for byte.
+    Returns ((the tool's seconds, its eager twin's), the agreements,
     whether the figure was drawn)."""
     import importlib.util
 
@@ -4463,6 +4650,18 @@ def tool_visualize(seq, models, root, dev, device_args=()):
     pngs = sorted(f for f in os.listdir(anim) if f.startswith("overlay_")
                   and f.endswith(".png"))
     check(len(pngs) == n, f"visualize --animate wrote {len(pngs)} of {n}")
+    # its eager twin in-process: the renderer's graph=False, every overlay
+    # the same bytes
+    twin = os.path.join(root, "anim_eager")
+    _, _, twin_secs = quiet_main(lambda argv: visualize.main(argv,
+                                                             graph=False), [
+        seq, "--cad-root", models, "--output", "", "--animate", twin,
+        *device_args])
+    for f in pngs:
+        with open(os.path.join(anim, f), "rb") as a, \
+                open(os.path.join(twin, f), "rb") as b:
+            check(a.read() == b.read(), f"visualize --animate: {f} differs "
+                  "from the eager twin's")
 
     result = load_json(os.path.join(seq, "result.json"))
     names = sorted({o["model_name"] for pk in result for o in pk})
@@ -4494,7 +4693,92 @@ def tool_visualize(seq, models, root, dev, device_args=()):
               f"visualize: frame {i} overlay agrees on {agree[i]:.5f}")
         check(colored > 50, f"visualize: frame {i} has {colored} coloured "
               "object pixels")
-    return secs, agree, figure
+    return (secs, twin_secs), agree, figure
+
+
+def tool_render_graphs(dev, intr, card):
+    """(f) render_depth graphed (one CallGraph over the whole render, the
+    default on the card) against eager: the semantic scene's 180
+    ground-truth poses (45 frames x 4 objects) through MultiMeshRenderer
+    in turns graph / eager / graph / eager / graph (the first graphed call
+    warms up, the second captures, the third replays), every depth the
+    same bytes, K3 180 a call, counted through the replays, one capture;
+    then `set_stack` with the meshes scaled by 1.3 drops the graph, and
+    the next graphed renders (a warm-up, a capture) are the new stack's
+    eager render, not the old one's; the same for Renderer over the first
+    object's mesh at its 45 poses (graph / eager / graph / graph, then
+    `set_mesh`). Returns the host ms of each call by what it ran:
+    eager, a graph's warm-up, its capture (with a replay) or a replay."""
+    import numpy as np
+    import torch
+
+    from visma_tpu_torch.io.procedural import bench_mesh_db
+    from visma_tpu_torch.io.synthetic_semantic import bench_scene
+    from visma_tpu_torch.render import raster as rs
+
+    k3 = rs.chunk_raster_frame
+    db = bench_mesh_db()
+    names, _, _, _, all_poses = bench_scene(SEM_FRAMES, SEM_OBJECTS)
+    mr = rs.MultiMeshRenderer(intr, device=dev)
+    mr.set_meshes(db)
+    mi = np.broadcast_to([mr.index(nm) for nm in names],
+                         all_poses.shape[:2]).copy()
+    single = rs.Renderer(intr, device=dev)
+    single.set_mesh(*db[names[0]])
+    ms = {"multi": [], "single": []}
+
+    def render(kind, graph, renderer):
+        args = ((all_poses, mi) if kind == "multi"
+                else (all_poses[:, 0],))
+        n = all_poses.shape[0] * (SEM_OBJECTS if kind == "multi" else 1)
+        before = k3.launches
+        g = renderer.__dict__.get("_depth_graph")
+        replay = g is not None and any(e.graph is not None
+                                       for e in g._entries.values())
+        caps = g.captures if g is not None else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = renderer.render_depth(*args, graph=graph)
+        torch.cuda.synchronize()
+        label = ("eager" if not graph else "replay" if replay
+                 else "capture" if renderer._depth_graph.captures > caps
+                 else "warm-up")
+        ms[kind].append((label, round((time.perf_counter() - t0) * 1e3, 3)))
+        check(k3.launches - before == n, f"render_depth ({kind}, graph="
+              f"{graph}) launched K3 {k3.launches - before} times, not {n}")
+        return out
+
+    def turns(kind, renderer, modes):
+        outs = [render(kind, g, renderer) for g in modes]
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"render_depth ({kind}): graphed and eager renders differ")
+        return outs[0]
+
+    def swapped(V):
+        return np.asarray(V, np.float32) * 1.3
+
+    old = turns("multi", mr, (True, False, True, False, True))
+    check(mr._depth_graph.captures == 1, "MultiMeshRenderer: "
+          f"{mr._depth_graph.captures} captures over five renders")
+    Vs, Fs = rs.pad_mesh_stack([(swapped(db[n][0]), db[n][1])
+                                for n in mr.names])
+    mr.set_stack(Vs, Fs)
+    new = turns("multi", mr, (True, True, False))
+    check(not torch.equal(new, old) and mr._depth_graph.captures == 1,
+          "MultiMeshRenderer: set_stack did not drop the old graph")
+    old = turns("single", single, (True, False, True, True))
+    check(single._depth_graph.captures == 1,
+          f"Renderer: {single._depth_graph.captures} captures")
+    single.set_mesh(swapped(db[names[0]][0]), db[names[0]][1])
+    new = turns("single", single, (True, True, False))
+    check(not torch.equal(new, old) and single._depth_graph.captures == 1,
+          "Renderer: set_mesh did not drop the old graph")
+    log(f"tools: (f) render_depth of {all_poses.shape[0] * SEM_OBJECTS} "
+        f"poses (MultiMeshRenderer) and {all_poses.shape[0]} (Renderer), "
+        f"graphed against eager, host ms {ms}; the same bytes, one capture "
+        f"each, K3 one a pose through the replays; after set_stack / "
+        f"set_mesh the new meshes' renders [{card}]")
+    return ms
 
 
 def tool_native(seq):
@@ -4529,7 +4813,9 @@ def tools_expected(syn, tool, twin, n_frames, m):
     (graphed) and its in-process twin (eager): warmup's (`warmup_launches`)
     and one batched raster + one edge_score a retrieval, and per CEM
     iteration two batched rasters (occluders, hypotheses) and one
-    edge_score; (d) per frame one K3 an object and one depth_edge."""
+    edge_score; (d) per frame one K3 an object and one depth_edge, for the
+    tool and its eager twin; (f) one K3 a pose of each render
+    (`RENDER_TURNS`)."""
     def k(frame=0, batched=0, edge=0, score=0):
         return {"chunk_raster_frame": frame, "chunk_raster_batched": batched,
                 "depth_edge": edge, "edge_score": score}
@@ -4548,7 +4834,9 @@ def tools_expected(syn, tool, twin, n_frames, m):
     return {"a": k(frame=1), "b": b, "b_twin": b,
             "c_write": k(frame=n_frames * m, edge=1),
             "c_tool": run(tool), "c_twin": run(twin),
-            "d": k(frame=n_frames * m, edge=n_frames)}
+            "d": k(frame=2 * n_frames * m, edge=2 * n_frames),
+            "f": k(frame=RENDER_TURNS["multi"] * n_frames * m
+                   + RENDER_TURNS["single"] * n_frames)}
 
 
 def tools_phase(dev, card, semantic_res):
@@ -4592,6 +4880,7 @@ def tools_phase(dev, card, semantic_res):
                              tool, edges, dev)
         secs_d, agree, figure = part("d", tool_visualize, seq, models,
                                      root, dev)
+        render_ms = part("f", tool_render_graphs, dev, intr, card)
         native_s, python_s = tool_native(seq)
 
     want = tools_expected(syn, tool, twin, SEM_FRAMES, SEM_OBJECTS)
@@ -4630,12 +4919,14 @@ def tools_phase(dev, card, semantic_res):
         f"(graphed, {tool.captures} captures) against in-process (eager): "
         f"every packet equal, max |dp| {dp:.2e} m [{card}]")
     log(f"tools: (d) visualize --animate, {SEM_FRAMES} frames: "
-        f"{secs_d:.2f} s; the static figure "
+        f"{secs_d[0]:.2f} s (its eager twin {secs_d[1]:.2f} s, every overlay "
+        f"the same bytes); the static figure "
         + ("drawn" if figure else "NOT MET, not drawn: no matplotlib on "
            "this machine (the CPU tests hold it to the JAX package's)")
         + "; overlay agreement with the plain render "
         f"{agree}; (e) packed_packets native {native_s * 1e3:.1f} ms, "
-        f"Python codec {python_s * 1e3:.1f} ms, equal; launches {launches}; "
+        f"Python codec {python_s * 1e3:.1f} ms, equal; (f) render_depth "
+        f"graphed / eager in turns {render_ms}; launches {launches}; "
         f"phase {time.time() - t_phase:.1f} s [{card}]")
     return launches
 

@@ -227,12 +227,32 @@ def _read(scene_dir, name):
         return json.load(fp)
 
 
-def test_quantitative_evaluation_matches_jax(tmp_path, capsys):
+def _ref_rotation_errors(config, scene_dir, T):
+    """The reference's rotation errors (deg) of the scene's objects under
+    the alignment T (3, 4) with its rotation replaced by the nearest
+    rotation matrix (visma_tpu/eval/evaluate.py:137-151)."""
+    from visma_tpu.eval.assembly import assemble_scene
+    from visma_tpu.eval.evaluate import _load_gt_models, _load_result_models
+
+    U, _, Vt = np.linalg.svd(np.asarray(T[:, :3], np.float64))
+    T_so3 = np.eye(4)
+    T_so3[:3, :3], T_so3[:3, 3] = U @ Vt, T[:, 3]
+    cad = config["CAD_database_root"]
+    _, _, Gr, _ = assemble_scene(_load_result_models(scene_dir, cad, 10),
+                                 alignment=T_so3)
+    _, _, Gg, _ = assemble_scene(_load_gt_models(
+        os.path.join(scene_dir, "fragments"), cad, 10))
+    _, r = jmetrics.measure_pose_error(Gr, Gg, dist_thresh=0.5)
+    return r.scaled(180.0 / 3.14).to_json()
+
+
+def test_quantitative_evaluation_matches_jax(tmp_path, capsys, monkeypatch):
     """The three-cube scene through the reference's quantitative_evaluation
     and the port's evaluate tool: every metric and T_ef_corvis within 1e-4,
     the reference's gates (test_eval.py:165), all five files written. ICP
     takes 2,000 samples a model where test_eval.py takes 5,000: the
-    reference's padded neighbour search makes those 40 s alone."""
+    reference's padded neighbour search makes those 40 s alone. Then the
+    tool again with the card's Umeyama rotation (`eig3.kabsch_rotation`)."""
     config, T_true, scene_dir = write_eval_scene(str(tmp_path),
                                                  samples_per_model=2000)
     ref = JE.quantitative_evaluation(config)
@@ -267,6 +287,26 @@ def test_quantitative_evaluation_matches_jax(tmp_path, capsys):
                  "result_alignment.json"):
         assert os.path.exists(os.path.join(scene_dir, name)), name
     assert _read(scene_dir, "surface_error.json") == got["surface"]
+
+    # the card's Umeyama rotation (eig3.kabsch_rotation, orthogonal to
+    # float64 rounding) in place of LAPACK's float32 SVD: the reference's
+    # T_ef_corvis, 30 float32-SVD rotations, has singular values drifted to
+    # 1 - 4.6e-6, which alone lifts its angles from 0.039 to 0.149 deg; the
+    # card's rotation errors are held to the reference's pose errors of
+    # that transformation's nearest rotation (the drift taken out)
+    monkeypatch.setattr(sys.modules["visma_tpu_torch.align.eig3"],
+                        "capturable", lambda t: True)
+    card = evaluate.main([str(cfg_path), "--device", "cpu"])
+    T_card = np.asarray(_read(scene_dir, "result_alignment.json")
+                        ["T_ef_corvis"]).reshape(3, 4)
+    np.testing.assert_allclose(T_card, T_ref, atol=1e-4)
+    for kind, want in (("surface", ref["surface"]),
+                       ("translation", ref["translation"]),
+                       ("rotation", _ref_rotation_errors(config, scene_dir,
+                                                         T_ref))):
+        tol = 0.05 if kind == "rotation" else 1e-4
+        for k, v in want.items():
+            assert abs(card[kind][k] - v) < tol, (kind, k, card[kind][k], v)
 
 
 def test_annotate_tool(tmp_path, capsys):

@@ -41,6 +41,15 @@ CROP = (4, 64)                          # top row, rows kept
 N_FRAMES = 12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     """12 blob frames rendered with the undistorter's output camera, warped

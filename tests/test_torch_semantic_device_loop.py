@@ -11,6 +11,15 @@ from test_torch_semantic import scene  # noqa: F401  (the shared fixture)
 from visma_tpu_torch.semantic import cem as TCEM
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_device_loop_agrees_with_host_oracle_on_quality(scene):
     """The fused loop with its own torch.Generator lands where the host
     oracle lands (different draws: a quality bound, not parity), returns

@@ -8,7 +8,7 @@ the hypotheses looped on the host as in the reference.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -30,12 +30,14 @@ def register_model_to_scene(model_pts: np.ndarray, scene_pts: np.ndarray,
                             num_yaw: int = 24, max_distance: float = 0.02,
                             voxel: float = 0.01,
                             point_to_plane: bool = False,
-                            gravity_axis: int = 2, device=None
+                            gravity_axis: int = 2, device=None,
+                            graph: Optional[bool] = None
                             ) -> Tuple[np.ndarray, IcpResult]:
     """Center both clouds, try `num_yaw` initial yaws, ICP each, keep the
     fit with most correspondences (cfg/tool.json's operating point: voxel
     0.01, 24 yaws, 0.02 threshold). Runs on the CUDA card unless `device`
-    says otherwise.
+    says otherwise. Every yaw's ICP has the same shapes: on the card the
+    first captures its iteration and the rest replay it (`graph`: `icp`'s).
 
     Returns (T_scene_model (4, 4), best IcpResult).
     """
@@ -62,7 +64,7 @@ def register_model_to_scene(model_pts: np.ndarray, scene_pts: np.ndarray,
 
         res = icp(model_pts, scene_ds, max_distance, init=T0,
                   point_to_plane=point_to_plane, target_valid=scene_valid,
-                  device=dev)
+                  device=dev, graph=graph)
         if best is None or res.correspondences > best.correspondences:
             best, best_T = res, res.transformation
     return best_T, best

@@ -26,6 +26,24 @@ def rows_per_chunk(chunk: int, cols: int, device: torch.device) -> int:
     return chunk * max(1, CUDA_TILE_ELEMS // max(chunk * cols, 1))
 
 
+def map_rows(chunk: int, n: int, cols: int, device: torch.device) -> int:
+    """The rows a chunk of a loop over n queries takes (`pad_chunks`):
+    `rows_per_chunk`'s, but no more whole multiples of `chunk` than n
+    queries fill, so that padding never outgrows the queries."""
+    return min(rows_per_chunk(chunk, cols, device), -(-n // chunk) * chunk)
+
+
+def pad_chunks(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """(N, ...) -> (ceil(N / rows), rows, ...), zero rows padding the last
+    chunk: the reference's pad before its `lax.map` over chunks. Each
+    row's result depends on that row alone, so the caller crops the
+    padding's rows off the result."""
+    pad = (-x.shape[0]) % rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    return x.unflatten(0, (-1, rows))
+
+
 @full_f32()
 def nearest_neighbors(query: torch.Tensor, ref: torch.Tensor,
                       ref_valid=None, chunk: int = 2048):

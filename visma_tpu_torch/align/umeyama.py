@@ -4,13 +4,17 @@
 uses it (constrained_ICP.cpp:25-37: the full Umeyama solution);
 `umeyama_4dof` is the gravity-constrained closed form (yaw + translation
 [+ scale]). Both take tensors on any device and return a (4, 4) tensor on
-it. The 3x3 SVD and determinants are `torch.linalg`'s; the rotation
-U diag(1, 1, d) V^T does not depend on the SVD's sign choices.
+it. The rotation U diag(1, 1, d) V^T of the 3x3 covariance's SVD is
+`eig3.umeyama_rotation`'s: on a CUDA device `eig3.kabsch_rotation`, in
+float64 tensor ops that read nothing back to the host (`torch.linalg.svd`
+cannot be captured into a CUDA graph, and ICP's iteration is), on the CPU
+LAPACK's float32 SVD, as the reference computes it.
 """
 from __future__ import annotations
 
 import torch
 
+from visma_tpu_torch.align.eig3 import umeyama_rotation
 from visma_tpu_torch.utils.misc import full_f32
 
 
@@ -33,21 +37,20 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor, weights=None,
     sc = src - mu_s
     dc = dst - mu_d
     cov = (dc * w[:, None]).T @ sc                         # (3,3)
-    U, S, Vt = torch.linalg.svd(cov)
-    d = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
-    one = torch.ones((), dtype=cov.dtype, device=cov.device)
-    Dg = torch.stack([one, one, d])
-    R = (U * Dg) @ Vt
-    var_s = torch.sum(w * torch.sum(sc * sc, dim=1))
-    c = (torch.sum(S * Dg) / torch.clamp(var_s, min=1e-12)
-         if with_scaling else one)
+    # trace(R^T cov) = sum(S diag(1, 1, d))
+    R, trace = umeyama_rotation(cov)
+    if with_scaling:
+        var_s = torch.sum(w * torch.sum(sc * sc, dim=1))
+        c = trace / torch.clamp(var_s, min=1e-12)
+    else:
+        c = torch.ones((), dtype=cov.dtype, device=cov.device)
     t = mu_d - c * R @ mu_s
     return _se3(c * R, t)
 
 
 def _se3(A: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=A.dtype,
-                          device=A.device)
+    # made on the device: a capture forbids a copy from the host
+    bottom = torch.eye(4, dtype=A.dtype, device=A.device)[3:]
     return torch.cat([torch.cat([A, t[:, None]], dim=1), bottom], dim=0)
 
 

@@ -33,7 +33,7 @@ import torch
 from visma_tpu_torch.ba.problem import BaProblem
 from visma_tpu_torch.geom.rotations import hat, rodrigues
 from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
-                                          wants_graph)
+                                          steps_of, wants_graph)
 from visma_tpu_torch.utils.misc import (cho_solve, cholesky_or_nan,
                                         full_f32, inv_ex)
 
@@ -267,11 +267,6 @@ def _lm_body(state, _):
 # the reference's jitted `_ba_run`: its body reads no Python constant, so
 # one StepGraph serves every solve (it keeps a graph per problem shape)
 _RUN = StepGraph(_lm_body)
-
-
-def steps_of(iters: int, device) -> torch.Tensor:
-    """The scan's empty per-step input of an LM loop of `iters` steps."""
-    return torch.empty((iters, 0), device=device)
 
 
 @full_f32()

@@ -33,10 +33,11 @@ from typing import Optional, Tuple
 import torch
 from torch.func import jvp, vmap
 
-from visma_tpu_torch.ba.gauss_newton import cho_solve_sym, steps_of
+from visma_tpu_torch.ba.gauss_newton import cho_solve_sym
 from visma_tpu_torch.geom import SE3
 from visma_tpu_torch.geom.rotations import rodrigues
-from visma_tpu_torch.utils.graphs import StepGraph, run_eager, wants_graph
+from visma_tpu_torch.utils.graphs import (StepGraph, run_eager, steps_of,
+                                          wants_graph)
 from visma_tpu_torch.utils.misc import full_f32
 
 

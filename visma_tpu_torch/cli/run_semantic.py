@@ -123,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, graph=None):
     """The tool; returns its mapper. graph: the mapper's `graph` (None:
-    the executors' CUDA graphs on the card), for an in-process eager twin;
-    the command line has no flag for it."""
+    the executors' CUDA graphs on the card) and the --synthetic ground
+    truth's `render_edge`'s, for an in-process eager twin; the command line
+    has no flag for it."""
     ap = build_parser()
     args = ap.parse_args(argv)
 
@@ -158,7 +159,8 @@ def main(argv=None, graph=None):
             G_cw[:3, 3] = -gwc[:, :3].T @ gwc[:, 3]
             pose_cm = (G_cw @ true_T)[:3, :4]
             # the edge map stays on the mapper's device
-            edges = gt_renderer.render_edge(pose_cm.astype(np.float32))
+            edges = gt_renderer.render_edge(pose_cm.astype(np.float32),
+                                            graph)
             bl = None
             if i == 0:  # single detection, no shape_id -> retrieval path
                 # tight detector-style bbox from the frame's edges: the

@@ -67,13 +67,15 @@ def draw_features(img, packet):
 
 
 def _animate(loader, result, mesh_db, out_dir: str, max_frames: int,
-             device, feature_dots: bool = True) -> int:
+             device, feature_dots: bool = True, graph=None) -> int:
     """Per-frame overlay renders: each result.json packet's objects are
     rasterized (edge maps, render.raster.MultiMeshRenderer: the frame's
     poses in one call, one `chunk_raster_frame` launch a pose, then one
-    `depth_edge`) at that frame's camera pose and alpha-blended onto the
-    frame image; INSTATE/GOODDROP feature pixels drawn as dots
-    (`draw_features`). Returns the number of frames written."""
+    `depth_edge`; on the card a replay of the renderer's captured graph,
+    `graph` its `render_depth`'s) at that frame's camera pose and
+    alpha-blended onto the frame image; INSTATE/GOODDROP feature pixels
+    drawn as dots (`draw_features`). Returns the number of frames
+    written."""
     import cv2
     import torch
 
@@ -118,7 +120,7 @@ def _animate(loader, result, mesh_db, out_dir: str, max_frames: int,
             if poses:
                 edges = mr.render_edge(
                     torch.as_tensor(np.stack(poses), dtype=torch.float32),
-                    torch.as_tensor(midx, dtype=torch.int64))
+                    torch.as_tensor(midx, dtype=torch.int64), graph)
                 img = overlay_frame(img, edges.cpu().numpy(), colors)
 
         if feature_dots and i < len(loader.dataset.packets):
@@ -188,7 +190,10 @@ def _figure(loader, args) -> None:
     print(f"saved {args.output}")
 
 
-def main(argv=None):
+def main(argv=None, graph=None):
+    """The tool. graph: the --animate renderer's `render_depth` argument
+    (None: its CUDA graph on the card), for an in-process eager twin; the
+    command line has no flag for it."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("dataroot")
     ap.add_argument("--result-index", type=int, default=-1,
@@ -233,7 +238,7 @@ def main(argv=None):
                         mesh_db[name] = load_mesh(path)
                         break
         n = _animate(loader, result, mesh_db, args.animate,
-                     args.max_frames, device)
+                     args.max_frames, device, graph=graph)
         print(f"wrote {n} overlay frames to {args.animate}")
 
     if args.output:

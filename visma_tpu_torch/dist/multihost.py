@@ -79,7 +79,7 @@ class Watchdog:
 
     spawn: callable returning a started subprocess.Popen — it must launch
     the worker in RESUME mode (the worker itself loads the latest snapshot
-    via visma_tpu.utils.checkpoint.latest_step/load_state, so a restart
+    via visma_tpu_torch.utils.checkpoint.latest_step/load_state, so a restart
     after any failure continues instead of recomputing).
     """
 

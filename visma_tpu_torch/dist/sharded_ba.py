@@ -37,11 +37,11 @@ import torch
 
 from visma_tpu_torch.ba.gauss_newton import (_apply, backsub_landmarks,
                                              build_reduced_system,
-                                             cho_solve_sym, steps_of,
-                                             total_cost)
+                                             cho_solve_sym, total_cost)
 from visma_tpu_torch.ba.problem import BaProblem
 from visma_tpu_torch.dist.mesh import Mesh
-from visma_tpu_torch.utils.graphs import CallGraph, StepGraph, run_eager
+from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, lru_get,
+                                          run_eager, steps_of)
 from visma_tpu_torch.utils.misc import full_f32
 
 
@@ -133,18 +133,6 @@ def mesh_key(mesh: Mesh) -> tuple:
     return (mesh.group, mesh.rank, mesh.size, mesh.device, mesh.axis)
 
 
-def _cached(cache: OrderedDict, key: tuple, make: Callable):
-    """cache[key], made by `make()` where missing; past `_CACHE_SIZE`
-    entries the least recently used is dropped, as `lru_cache` drops it."""
-    runner = cache.get(key)
-    if runner is None:
-        runner = cache[key] = make()
-        while len(cache) > _CACHE_SIZE:
-            cache.popitem(last=False)
-    cache.move_to_end(key)
-    return runner
-
-
 def lm_runner(mesh: Mesh, key: tuple, step: Callable,
               graph: Optional[bool]) -> Callable:
     """`run(state, steps)` of the LM loop over `step(shard, damping)`: the
@@ -154,7 +142,8 @@ def lm_runner(mesh: Mesh, key: tuple, step: Callable,
     body = partial(_lm_body, step)
     if not mesh.graphed(graph):
         return partial(run_eager, body)
-    run = _cached(_RUNS, (mesh_key(mesh), *key), lambda: StepGraph(body))
+    run = lru_get(_RUNS, (mesh_key(mesh), *key), lambda: StepGraph(body),
+                  _CACHE_SIZE)
     # an entry made by an equal mesh: this one's step and counters
     run.body, run.counts = body, (mesh.counts,)
     return run.run
@@ -182,8 +171,8 @@ def sharded_ba_step(prob: BaProblem, mesh: Mesh, damping: float = 1e-3,
     shard, L = _shard_problem(prob, mesh)
     lam = torch.full((), damping, dtype=torch.float32, device=mesh.device)
     if mesh.graphed(graph):
-        call = _cached(_STEPS, mesh_key(mesh),
-                       lambda: CallGraph(_step_call))
+        call = lru_get(_STEPS, mesh_key(mesh), lambda: CallGraph(_step_call),
+                       _CACHE_SIZE)
         call.fn, call.counts = partial(_step_call, mesh=mesh), (mesh.counts,)
         R, p, X, cost = call(shard, lam)
         new = shard.replace(R=R, p=p, X=X)

@@ -5,25 +5,50 @@ Surface error is a chunked brute-force point-to-triangle distance in
 PyTorch (the reference's is XLA code, no Pallas kernel). `_pm_dist_aos` is
 the pairwise form and the exactness oracle; `_pm_dist`, the production
 path, takes every region field from one (chunk, 3) @ (3, 4T) product and
-re-evaluates the two best triangles exactly. The reference maps the chunks
-with `lax.map`; here they are a Python loop. A row's result depends on
-that row alone, so on a CUDA device the chunk grows (`rows_per_chunk`:
-1024 rows times the whole multiples that keep a chunk's (rows, T) field
-within `nn.CUDA_TILE_ELEMS` entries; 6144 rows against the 10,164-face
-bench scene) without changing the answer. Products run at full float32
-precision (`full_f32`: no TF32), the reference's `Precision.HIGHEST`.
+re-evaluates the two best triangles exactly. The reference jits both and
+maps the chunks with `lax.map` (visma_tpu/eval/metrics.py:105-219): here
+each is an eager prologue (the per-triangle constants) and a loop over
+query chunks, P padded to whole chunks and the result cropped. On a CUDA
+device the loop replays one chunk captured into a CUDA graph
+(`utils.graphs.StepGraph`, the constants its unchanged state; one graph
+per triangle count and chunk, whatever the number of points, in an LRU of
+`_CACHE_SIZE`); `graph=False` runs the same chunks eagerly. A row's result
+depends on that row alone, so on a CUDA device the chunk grows
+(`nn.map_rows`: 1024 rows times the whole multiples that keep a chunk's
+(rows, T) field within `nn.CUDA_TILE_ELEMS` entries, 6144 rows against the
+10,164-face bench scene, and no more than the points fill) without
+changing the answer. Products run at full
+float32 precision (`full_f32`: no TF32), the reference's
+`Precision.HIGHEST`.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from visma_tpu_torch.align.nn import rows_per_chunk
+from visma_tpu_torch.align.nn import map_rows, pad_chunks
 from visma_tpu_torch.eval.sampling import sample_mesh
+from visma_tpu_torch.utils.graphs import loop_runner
 from visma_tpu_torch.utils.misc import as_f32, full_f32, resolve_device
+
+
+# the chunk loops' StepGraphs by (form, triangles, rows): each keeps a
+# private pool that holds a chunk's fields, 6,956 MB at 6,144 rows x 10,164
+# faces on the H100, for a replay 2% faster than the eager chunks (the loop
+# is bound by its fields, not by launches), so only the most recently used
+# is kept, and `release_graphs()` drops it
+_RUNS: OrderedDict = OrderedDict()
+_CACHE_SIZE = 1
+
+
+def release_graphs() -> None:
+    """Drop the cached surface-distance graph with its memory pool
+    (`torch.cuda.empty_cache()` then returns the memory to the card)."""
+    _RUNS.clear()
 
 
 @dataclass
@@ -108,18 +133,83 @@ def _point_triangle_d2(p, a, b, c):
     return torch.sum((p - q) ** 2, -1)
 
 
-def _pm_dist_aos(P, A, B, C, chunk: int = 1024) -> torch.Tensor:
+def _chunk_map(form: str, body, consts, P, chunk: int, cols: int,
+               graph: Optional[bool]) -> torch.Tensor:
+    """`body` over P's chunks (`map_rows` rows against `cols` columns a
+    query; P padded, the result cropped), the constants as the loop's
+    unchanged state."""
+    rows = map_rows(chunk, P.shape[0], cols, P.device)
+    run = loop_runner(_RUNS, (form, consts[0].shape[0], rows), body, graph,
+                      P.device, _CACHE_SIZE)
+    _, out = run(consts, pad_chunks(P, rows))
+    return out.reshape(-1)[:P.shape[0]]
+
+
+def _aos_body(state, pc):
+    A, B, C = state
+    return state, torch.amin(_point_triangle_d2(pc[:, None, :], A[None],
+                                                B[None], C[None]), dim=1)
+
+
+def _pm_dist_aos(P, A, B, C, chunk: int = 1024,
+                 graph: Optional[bool] = None) -> torch.Tensor:
     """Pairwise (chunk, T, 3) form: squared distance of each point of P to
     the nearest of the triangles (A, B, C). The exactness oracle."""
-    out = [torch.amin(_point_triangle_d2(pc[:, None, :], A[None], B[None],
-                                         C[None]), dim=1)
-           for pc in torch.split(P, rows_per_chunk(chunk, 3 * A.shape[0],
-                                                 P.device))]
-    return torch.cat(out)
+    return _chunk_map("aos", _aos_body, (A, B, C), P, chunk, 3 * A.shape[0],
+                      graph)
+
+
+def _soa_body(state, pc):
+    """One chunk of `_pm_dist`: the region fields from one product, the
+    exact re-evaluation of each point's two best triangles."""
+    (A, B, C, M, a_ab, b_ab, c_ab, a_ac, b_ac, c_ac, aa, bb, cc, abab,
+     acac, bcbc, nn, na, big, tri) = state
+    T = A.shape[0]
+    F4 = pc @ M                                          # (chunk, 4T)
+    pab, pac, pa, pn = (F4[:, :T], F4[:, T:2 * T],
+                        F4[:, 2 * T:3 * T], F4[:, 3 * T:])
+    pp = torch.sum(pc * pc, 1, keepdim=True)
+    d1, d3, d5 = pab - a_ab, pab - b_ab, pab - c_ab
+    d2_, d4, d6 = pac - a_ac, pac - b_ac, pac - c_ac
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2_ - d1 * d6
+    vc = d1 * d4 - d3 * d2_
+    in_a = (d1 <= 0) & (d2_ <= 0)
+    in_b = (d3 >= 0) & (d4 <= d3)
+    in_c = (d6 >= 0) & (d5 <= d6)
+    on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0) & ~in_a & ~in_b
+    on_ac = (vb <= 0) & (d2_ >= 0) & (d6 <= 0) & ~in_a & ~in_c
+    on_bc = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0) & ~in_b & ~in_c
+    dA = pp - 2 * pa + aa
+    dB_ = pp - 2 * (pa + pab) + bb
+    dC = pp - 2 * (pa + pac) + cc
+    t1 = torch.clamp(d1 / _safe(d1 - d3), 0.0, 1.0)
+    t2 = torch.clamp(d2_ / _safe(d2_ - d6), 0.0, 1.0)
+    t3 = torch.clamp((d4 - d3) / _safe((d4 - d3) + (d5 - d6)), 0.0, 1.0)
+    dAB = dA - 2 * t1 * d1 + t1 * t1 * abab
+    dAC = dA - 2 * t2 * d2_ + t2 * t2 * acac
+    dBC = dB_ - 2 * t3 * (d4 - d3) + t3 * t3 * bcbc
+    dF = torch.where(nn > 1e-30, (pn - na) ** 2 / _safe(nn), big)
+    d2_all = torch.where(on_bc, dBC, dF)
+    d2_all = torch.where(on_ac, dAC, d2_all)
+    d2_all = torch.where(on_ab, dAB, d2_all)
+    d2_all = torch.where(in_c, dC, d2_all)
+    d2_all = torch.where(in_b, dB_, d2_all)
+    d2_all = torch.where(in_a, dA, d2_all)
+    # exact re-evaluation of the two best candidates
+    d2w = torch.clamp(d2_all, min=0.0)
+    i = torch.argmin(d2w, dim=1)
+    e1 = _point_triangle_d2(pc, A[i], B[i], C[i])
+    d2w = torch.where(tri[None, :] == i[:, None],
+                      torch.full_like(d2w, float("inf")), d2w)
+    j = torch.argmin(d2w, dim=1)
+    e2 = _point_triangle_d2(pc, A[j], B[j], C[j])
+    return state, torch.minimum(e1, e2)
 
 
 @full_f32()
-def _pm_dist(P, A, B, C, chunk: int = 1024) -> torch.Tensor:
+def _pm_dist(P, A, B, C, chunk: int = 1024,
+             graph: Optional[bool] = None) -> torch.Tensor:
     """Structure-of-arrays point-to-mesh squared distance (metrics.py:126).
 
     Every dot product of the region classification is affine in p, so the
@@ -133,67 +223,20 @@ def _pm_dist(P, A, B, C, chunk: int = 1024) -> torch.Tensor:
     """
     center = torch.mean(A, dim=0)
     A, B, C = A - center, B - center, C - center
-    P = P - center
     ab, ac, bc = B - A, C - A, C - B
     nrm = torch.linalg.cross(ab, ac, dim=-1)
     M = torch.cat([ab.T, ac.T, A.T, nrm.T], dim=1)          # (3, 4T)
     T = A.shape[0]
-    a_ab, b_ab, c_ab = (torch.sum(x * ab, 1) for x in (A, B, C))
-    a_ac, b_ac, c_ac = (torch.sum(x * ac, 1) for x in (A, B, C))
-    aa, bb, cc = (torch.sum(x * x, 1) for x in (A, B, C))
-    abab = torch.sum(ab * ab, 1)
-    acac = torch.sum(ac * ac, 1)
-    bcbc = torch.sum(bc * bc, 1)
-    nn = torch.sum(nrm * nrm, 1)
-    na = torch.sum(nrm * A, 1)
-    big = torch.tensor(1e30, dtype=P.dtype, device=P.device)
-    tri = torch.arange(T, device=P.device)
-
-    def body(pc):
-        F4 = pc @ M                                          # (chunk, 4T)
-        pab, pac, pa, pn = (F4[:, :T], F4[:, T:2 * T],
-                            F4[:, 2 * T:3 * T], F4[:, 3 * T:])
-        pp = torch.sum(pc * pc, 1, keepdim=True)
-        d1, d3, d5 = pab - a_ab, pab - b_ab, pab - c_ab
-        d2_, d4, d6 = pac - a_ac, pac - b_ac, pac - c_ac
-        va = d3 * d6 - d5 * d4
-        vb = d5 * d2_ - d1 * d6
-        vc = d1 * d4 - d3 * d2_
-        in_a = (d1 <= 0) & (d2_ <= 0)
-        in_b = (d3 >= 0) & (d4 <= d3)
-        in_c = (d6 >= 0) & (d5 <= d6)
-        on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0) & ~in_a & ~in_b
-        on_ac = (vb <= 0) & (d2_ >= 0) & (d6 <= 0) & ~in_a & ~in_c
-        on_bc = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0) \
-            & ~in_b & ~in_c
-        dA = pp - 2 * pa + aa
-        dB_ = pp - 2 * (pa + pab) + bb
-        dC = pp - 2 * (pa + pac) + cc
-        t1 = torch.clamp(d1 / _safe(d1 - d3), 0.0, 1.0)
-        t2 = torch.clamp(d2_ / _safe(d2_ - d6), 0.0, 1.0)
-        t3 = torch.clamp((d4 - d3) / _safe((d4 - d3) + (d5 - d6)), 0.0, 1.0)
-        dAB = dA - 2 * t1 * d1 + t1 * t1 * abab
-        dAC = dA - 2 * t2 * d2_ + t2 * t2 * acac
-        dBC = dB_ - 2 * t3 * (d4 - d3) + t3 * t3 * bcbc
-        dF = torch.where(nn > 1e-30, (pn - na) ** 2 / _safe(nn), big)
-        d2_all = torch.where(on_bc, dBC, dF)
-        d2_all = torch.where(on_ac, dAC, d2_all)
-        d2_all = torch.where(on_ab, dAB, d2_all)
-        d2_all = torch.where(in_c, dC, d2_all)
-        d2_all = torch.where(in_b, dB_, d2_all)
-        d2_all = torch.where(in_a, dA, d2_all)
-        # exact re-evaluation of the two best candidates
-        d2w = torch.clamp(d2_all, min=0.0)
-        i = torch.argmin(d2w, dim=1)
-        e1 = _point_triangle_d2(pc, A[i], B[i], C[i])
-        d2w = torch.where(tri[None, :] == i[:, None],
-                          torch.full_like(d2w, float("inf")), d2w)
-        j = torch.argmin(d2w, dim=1)
-        e2 = _point_triangle_d2(pc, A[j], B[j], C[j])
-        return torch.minimum(e1, e2)
-
-    return torch.cat([body(pc) for pc in
-                      torch.split(P, rows_per_chunk(chunk, T, P.device))])
+    consts = (A, B, C, M,
+              *(torch.sum(x * ab, 1) for x in (A, B, C)),
+              *(torch.sum(x * ac, 1) for x in (A, B, C)),
+              *(torch.sum(x * x, 1) for x in (A, B, C)),
+              torch.sum(ab * ab, 1), torch.sum(ac * ac, 1),
+              torch.sum(bc * bc, 1), torch.sum(nrm * nrm, 1),
+              torch.sum(nrm * A, 1),
+              torch.tensor(1e30, dtype=P.dtype, device=P.device),
+              torch.arange(T, device=P.device))
+    return _chunk_map("soa", _soa_body, consts, P - center, chunk, T, graph)
 
 
 def point_mesh_distances(points: np.ndarray, V: np.ndarray, F: np.ndarray,

@@ -51,6 +51,7 @@ import torch
 from visma_tpu_torch import _kernels
 from visma_tpu_torch.geom import rotations as _rot  # noqa: F401  (TF32 off)
 from visma_tpu_torch.render.camera import Intrinsics
+from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 from visma_tpu_torch.utils.misc import resolve_device
 
 SUB_FRAME = 32     # binning subtile edge of full-frame renders
@@ -564,46 +565,71 @@ class Renderer:
     """Drop-in equivalent of the reference Renderer
     (render/renderer.h:41-158): set camera and mesh once, then render
     depth / mask / edge per pose, with poses batched. `g_cm` maps model
-    coordinates to camera coordinates."""
+    coordinates to camera coordinates.
+
+    On a CUDA device `render_depth` replays one captured CUDA graph a call
+    (`utils.graphs.CallGraph` over the whole render: the batched setup, one
+    K3 a pose, the stack), one graph per pose count, the reference's jitted
+    `rasterize_depth_chunked`; `graph=False` renders eagerly. `set_mesh`
+    drops the graph, which reads the mesh by address."""
 
     def __init__(self, intr: Intrinsics, device=None):
         self.intr = intr
         self.device = resolve_device(device)
         self.V: Optional[torch.Tensor] = None
         self.F: Optional[torch.Tensor] = None
+        self._depth_graph: Optional[CallGraph] = None
 
     def set_mesh(self, V, F):
         V = np.asarray(V, np.float32)
         self.V = torch.as_tensor(V, device=self.device)
         self.F = torch.as_tensor(sort_faces_morton(V, np.asarray(F)),
                                  device=self.device)
+        self._depth_graph = None
 
-    def render_depth(self, g_cm) -> torch.Tensor:
-        """g_cm: (...,3,4) or (...,4,4) model->camera. Returns (...,H,W)."""
+    def render_depth(self, g_cm, graph: Optional[bool] = None
+                     ) -> torch.Tensor:
+        """g_cm: (...,3,4) or (...,4,4) model->camera. Returns (...,H,W).
+        graph: `utils.graphs.wants_graph`'s rule (None: the graph on a
+        CUDA device, eager on the CPU)."""
         poses, batch = _poses34(g_cm, self.device)
-        out = rasterize_depth_chunked(self.V, self.F, poses, self.intr)
+        if wants_graph(graph, self.device):
+            if self._depth_graph is None:
+                V, F, intr = self.V, self.F, self.intr
+                self._depth_graph = CallGraph(
+                    lambda p: rasterize_depth_chunked(V, F, p, intr))
+            out = self._depth_graph(poses)
+        else:
+            out = rasterize_depth_chunked(self.V, self.F, poses, self.intr)
         return out.reshape(*batch, self.intr.rows, self.intr.cols)
 
     def render_mask(self, g_cm) -> torch.Tensor:
         """uint8 mask: 255 where the mesh covers the pixel."""
         return (torch.isfinite(self.render_depth(g_cm)) * 255).to(torch.uint8)
 
-    def render_edge(self, g_cm) -> torch.Tensor:
+    def render_edge(self, g_cm, graph: Optional[bool] = None) -> torch.Tensor:
         """Edge image in [0,1] from the depth render."""
         from visma_tpu_torch.image.edges import depth_edge
 
-        return depth_edge(self.render_depth(g_cm))
+        return depth_edge(self.render_depth(g_cm, graph))
 
 
 # The executors that semantic/ caches on a MultiMeshRenderer, by attribute
-EXECUTOR_CACHES = ("_cem_exec_cache", "_retr_exec_cache", "_occ_exec_cache")
+SEMANTIC_CACHES = ("_cem_exec_cache", "_retr_exec_cache", "_occ_exec_cache")
+# every graph cached on a MultiMeshRenderer: `set_stack` drops them all
+EXECUTOR_CACHES = SEMANTIC_CACHES + ("_depth_graph",)
 
 
 class MultiMeshRenderer:
     """Renderer over a database of meshes: every call takes a
     per-hypothesis mesh index, so one call renders hypothesis batches of
     different objects. Holds the padded stack on its device: Vs, Fs and
-    the precomputed face corners Cs (no vertex gather per call)."""
+    the precomputed face corners Cs (no vertex gather per call).
+
+    On a CUDA device `render_depth` replays one captured CUDA graph a call
+    over the stack, as `Renderer.render_depth` does (the reference's
+    per-stack executor, visma_tpu/render/raster.py:913-915); `set_stack`
+    drops it with the semantic executors."""
 
     def __init__(self, intr: Intrinsics, device=None):
         self.intr = intr
@@ -622,11 +648,11 @@ class MultiMeshRenderer:
     def set_stack(self, Vs, Fs, names=None) -> None:
         """Take an already padded, Morton-sorted stack (numpy).
 
-        Drops the executors cached on this renderer (the fused CEM's, the
-        retrieval's and the occluders'; semantic/cem.py,
-        semantic/mapper.py): their graphs read the previous stack by
-        address, and would keep rendering the old meshes (the reference's
-        set_meshes, visma_tpu/render/raster.py:902-912)."""
+        Drops the graphs cached on this renderer (the render's, the fused
+        CEM's, the retrieval's and the occluders'; semantic/cem.py,
+        semantic/mapper.py): they read the previous stack by address, and
+        would keep rendering the old meshes (the reference's set_meshes,
+        visma_tpu/render/raster.py:902-912)."""
         for cache in EXECUTOR_CACHES:
             self.__dict__.pop(cache, None)
         if names is not None:
@@ -641,21 +667,35 @@ class MultiMeshRenderer:
     def index(self, name: str) -> int:
         return self.names.index(name)
 
-    def render_depth(self, g_cm, mesh_idx) -> torch.Tensor:
+    def render_depth(self, g_cm, mesh_idx, graph: Optional[bool] = None
+                     ) -> torch.Tensor:
         """g_cm (...,3,4)/(...,4,4) model->camera; mesh_idx (...,) int:
-        which database mesh each hypothesis renders. Returns (...,H,W)."""
+        which database mesh each hypothesis renders. Returns (...,H,W).
+        graph: `utils.graphs.wants_graph`'s rule (None: the graph on a
+        CUDA device, eager on the CPU)."""
         poses, batch = _poses34(g_cm, self.device)
         mi = torch.as_tensor(mesh_idx, device=self.device).reshape(-1)
         if mi.shape[0] == 1 and poses.shape[0] > 1:
             mi = mi.expand(poses.shape[0])
-        out = rasterize_depth_chunked_multi(self.Cs, poses, mi, self.intr)
+        if wants_graph(graph, self.device):
+            run = self.__dict__.get("_depth_graph")
+            if run is None:
+                Cs, intr = self.Cs, self.intr
+                run = self._depth_graph = CallGraph(
+                    lambda p, m: rasterize_depth_chunked_multi(Cs, p, m,
+                                                               intr))
+            out = run(poses, mi)
+        else:
+            out = rasterize_depth_chunked_multi(self.Cs, poses, mi,
+                                                self.intr)
         return out.reshape(*batch, self.intr.rows, self.intr.cols)
 
     def render_mask(self, g_cm, mesh_idx) -> torch.Tensor:
         d = self.render_depth(g_cm, mesh_idx)
         return (torch.isfinite(d) * 255).to(torch.uint8)
 
-    def render_edge(self, g_cm, mesh_idx) -> torch.Tensor:
+    def render_edge(self, g_cm, mesh_idx, graph: Optional[bool] = None
+                    ) -> torch.Tensor:
         from visma_tpu_torch.image.edges import depth_edge
 
-        return depth_edge(self.render_depth(g_cm, mesh_idx))
+        return depth_edge(self.render_depth(g_cm, mesh_idx, graph))

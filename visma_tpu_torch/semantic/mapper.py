@@ -43,7 +43,7 @@ from torch.profiler import record_function
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
                                                occlusion_aware_edge_score)
-from visma_tpu_torch.render.raster import (EXECUTOR_CACHES,
+from visma_tpu_torch.render.raster import (SEMANTIC_CACHES,
                                            MultiMeshRenderer,
                                            rasterize_depth_chunked_multi)
 from visma_tpu_torch.semantic.cem import (CEM_TAU, _cem_run, _sigma6,
@@ -231,7 +231,7 @@ class SemanticMapper:
         """The executors' runners on this mapper's renderer
         (`utils.graphs.CallGraph`), by (cache, key)."""
         out = {}
-        for cache in EXECUTOR_CACHES:
+        for cache in SEMANTIC_CACHES:
             for k, run in self.mrenderer.__dict__.get(cache, {}).items():
                 out[cache, k] = getattr(run, "graph", run)
         return out
@@ -390,12 +390,13 @@ class SemanticMapper:
                 if self.graphed
                 else retrieval_scores(self.mrenderer, (Hr, Wr), *args))
         else:
-            # one full-frame pass over all (mesh, yaw) hypotheses
+            # one full-frame pass over all (mesh, yaw) hypotheses: the
+            # renderer's graph keeps a capture a candidate count
             box_mask = np.zeros((H, W), np.float32)
             box_mask[y0:y1, x0:x1] = 1.0
             dev_scores = occlusion_aware_edge_score(
-                self.mrenderer.render_depth(hyps_d, mi), None, dt,
-                em * self._f32(box_mask))
+                self.mrenderer.render_depth(hyps_d, mi, graph=self.graphed),
+                None, dt, em * self._f32(box_mask))
         scores = dev_scores.cpu().numpy().reshape(Mc, B) \
             + prior[None, :] + aspect_pen
         m, b = np.unravel_index(int(np.argmin(scores)), scores.shape)

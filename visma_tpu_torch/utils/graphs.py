@@ -60,12 +60,19 @@ writes the same addresses again, so a caller that kept the last call's
 outputs would see them change. On the CPU the call runs on the buffers
 without capture and its outputs pass through static output buffers too,
 so that a caller's aliasing shows there as well.
+
+Captures cannot nest: a runner entered while a capture is running on the
+current stream raises `GraphCaptureError` (a captured body calls the eager
+form of what it runs). `loop_runner` picks a loop's StepGraph out of an
+LRU (`lru_get`) by the caller's key, or the eager loop.
 """
 from __future__ import annotations
 
 import time
 import traceback
+from collections import OrderedDict
 from dataclasses import dataclass
+from functools import partial
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -117,12 +124,56 @@ def _graph_ops(graph) -> int:
     return ops
 
 
+def capturing(device: torch.device) -> bool:
+    """Whether a CUDA graph capture is running on `device`'s current
+    stream (never on the CPU)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _refuse_nesting(device: torch.device) -> None:
+    """Captures cannot nest: a runner entered inside another's capture
+    raises instead of capturing (or warming up) within it."""
+    if capturing(device):
+        raise GraphCaptureError(
+            "a graphed call entered while a CUDA graph capture is running: "
+            "captures cannot nest; a captured body calls the eager form")
+
+
 def wants_graph(graph: Optional[bool], device: torch.device) -> bool:
     """A runner's `graph` argument: None means a graph on a CUDA device and
     the eager loop on the CPU; True or False asks for one or the other (a
     graph asked for on the CPU runs `StepGraph`'s buffers without
     capture)."""
     return device.type == "cuda" if graph is None else bool(graph)
+
+
+def lru_get(cache: OrderedDict, key, make: Callable, size: int):
+    """cache[key], made by `make()` where missing; past `size` entries the
+    least recently used is dropped, with its graphs and their memory
+    pools, as `functools.lru_cache` drops it."""
+    runner = cache.get(key)
+    if runner is None:
+        runner = cache[key] = make()
+        while len(cache) > size:
+            cache.popitem(last=False)
+    cache.move_to_end(key)
+    return runner
+
+
+def loop_runner(cache: OrderedDict, key, body: Callable,
+                graph: Optional[bool], device: torch.device,
+                size: int) -> Callable:
+    """`run(state, xs)` of the loop over `body`: the replays of a
+    StepGraph cached in `cache` under `key` (`lru_get`) where
+    `wants_graph(graph, device)`, else the eager loop."""
+    if not wants_graph(graph, device):
+        return partial(run_eager, body)
+    return lru_get(cache, key, lambda: StepGraph(body), size).run
+
+
+def steps_of(iters: int, device) -> torch.Tensor:
+    """The scan's empty per-step input of a loop of `iters` steps."""
+    return torch.empty((iters, 0), device=device)
 
 
 def run_eager(body: Callable, state, xs):
@@ -289,6 +340,7 @@ class StepGraph(_Captures):
         n = x_leaves[0].shape[0]
         if n == 0:
             raise ValueError("StepGraph.run: an empty sequence")
+        _refuse_nesting(x_leaves[0].device)
         key = (str(s_spec), str(x_spec), _signature(s_leaves),
                _signature([x[0] for x in x_leaves]))
         entry = self._entries.get(key)
@@ -385,6 +437,7 @@ class CallGraph(_Captures):
 
     def __call__(self, *inputs):
         leaves, spec = pytree.tree_flatten(inputs)
+        _refuse_nesting(leaves[0].device)
         key = (str(spec), _signature(leaves))
         entry = self._entries.get(key)
         if entry is None:
