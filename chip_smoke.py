@@ -3217,8 +3217,7 @@ def device_trace(fn, warm=None, what=""):
     sum) in ms: the union counts time two streams overlap once."""
     from visma_tpu_torch.utils.trace import traced
 
-    trace = traced(fn, warm, annotations=("frontend", "filter"),
-                   takes=TRACE_TAKES)
+    trace = traced(fn, warm, takes=TRACE_TAKES)
     for line in trace.lost:
         log(f"  trace of {what}, a take that lost records: {line}")
     log(f"  trace of {what}: {trace.check()}")
@@ -4733,7 +4732,7 @@ def tool_render_graphs(dev, intr, card):
         n = all_poses.shape[0] * (SEM_OBJECTS if kind == "multi" else 1)
         before = k3.launches
         g = renderer.__dict__.get("_depth_graph")
-        replay = g is not None and any(e.graph is not None
+        replay = g is not None and any(False in e.variants
                                        for e in g._entries.values())
         caps = g.captures if g is not None else 0
         torch.cuda.synchronize()

@@ -143,12 +143,12 @@ def test_trace_union_check_and_takes(monkeypatch):
     ops = [("a", 0.0, 10.0), ("b", 5.0, 15.0), ("c", 20.0, 22.0),
            ("d", 30.0, 30.0)]
     t = TT.Trace(ops=ops, host_launches=4, graph_launches=0,
-                 host_events=[("frontend", 0.0, 3000.0),
-                              ("frontend", 5000.0, 6000.0)])
+                 spans=[("vio.step", 0.0, 3000.0),
+                        ("vio.step", 5000.0, 6000.0)])
     assert t.busy_ms() == pytest.approx((0.017, 0.022))
     assert t.check().startswith("4 device ops traced")
     assert t.top(1) == [("a", 10.0, 1)]
-    assert t.host_ms(("frontend",)) == {"frontend": pytest.approx(4.0)}
+    assert t.span_ms() == [("vio.step", pytest.approx(4.0), 2)]
     with pytest.raises(RuntimeError, match="lost device records"):
         TT.Trace(ops=ops, host_launches=5, graph_launches=0).check()
     # graphs of other makers: at least one op a launch

@@ -57,8 +57,10 @@ The layout mirrors the reference:
                function captured once an input shape and replayed a call
                (VioPipeline.step, Msckf.step, FeatureTracker.step, the
                semantic executors, the BA steps)
-  utils/trace.py   device traces begun behind a marker kernel, held to the
-               host's launch count
+  utils/trace.py   the program's spans and stage marks (recorded while a
+               profiler is active, or after enable()), and device traces
+               begun behind a marker kernel, held to the host's launch
+               count
   cli/         undistort_images, run_vio, evaluate, annotate, example_load,
                example_dump
   convert.py   state carried between the reference and the port

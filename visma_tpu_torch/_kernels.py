@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("corner_score.cu", "lk_level.cu", "chunk_raster.cu",
-           "depth_edge.cu", "bilinear_remap.cu")
+           "depth_edge.cu", "bilinear_remap.cu", "stage_mark.cu")
 BUILD_ROOT = _PKG.parent / "build" / "visma_tpu_torch"
 LIB_NAME = "libvisma_tpu_torch.so"
 NVCC_FLAGS = (
@@ -66,6 +66,10 @@ _SIGNATURES = {
                       _I, _I, _I, _F, _F, _I, _F, _F, _I, _P),
     # (img, table, out, branch or NULL, B, H, W, C, oh, ow, is_u8, stream)
     "vt_bilinear_remap": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (mark id, stream); the number of marks; load every mark's function
+    "vt_stage_mark": (_I, _P),
+    "vt_stage_marks": (),
+    "vt_stage_mark_load": (),
 }
 
 

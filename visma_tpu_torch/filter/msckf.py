@@ -40,6 +40,7 @@ from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
                                           wants_graph)
 from visma_tpu_torch.utils.misc import (DivergenceError, finite_tree,
                                         resolve_device, with_blocks)
+from visma_tpu_torch.utils.trace import span, stage
 
 _EMPTY = int(FeatureStatus.EMPTY)
 _INITIALIZING = int(FeatureStatus.INITIALIZING)
@@ -273,7 +274,8 @@ class Msckf:
         return torch.func.vmap(functools.partial(_frame_step, self.cfg))
 
     def _batched_step(self, states: FilterState, frames):
-        states = self._vstep(states, frames)
+        with stage("filter", self.device):
+            states = self._vstep(states, frames)
         return states, {"R": states.R, "p": states.p}
 
     def run(self, state: FilterState, frames: Dict[str, torch.Tensor]):
@@ -297,15 +299,16 @@ class Msckf:
         (`stack_states` over `init`); frames: {key: (B, N, ...)}. Returns
         (final states (B, ...), {R (B,N,3,3), p (B,N,3)}). Works with SLAM
         landmarks too: the vmap covers their hooks."""
-        frames = {k: v.transpose(0, 1) for k, v in frames.items()}
-        if not self._graph:
-            states, outs = run_eager(self._batched_step, states, frames)
-        else:
-            if self.batched_graph is None:
-                self.batched_graph = StepGraph(self._batched_step)
-            states, outs = self.batched_graph.run(states, frames)
-        return states, {k: v.transpose(0, 1).contiguous()
-                        for k, v in outs.items()}
+        with span("msckf.run_batched"):
+            frames = {k: v.transpose(0, 1) for k, v in frames.items()}
+            if not self._graph:
+                states, outs = run_eager(self._batched_step, states, frames)
+            else:
+                if self.batched_graph is None:
+                    self.batched_graph = StepGraph(self._batched_step)
+                states, outs = self.batched_graph.run(states, frames)
+            return states, {k: v.transpose(0, 1).contiguous()
+                            for k, v in outs.items()}
 
 
 def _frame_step(cfg: FilterConfig, state: FilterState,

@@ -31,6 +31,7 @@ import math
 import torch
 
 from visma_tpu_torch import _kernels
+from visma_tpu_torch.utils.trace import span
 
 
 def _layout(image: torch.Tensor, remap: torch.Tensor):
@@ -176,8 +177,15 @@ def bilinear_remap(image: torch.Tensor, remap: torch.Tensor, *,
 
     return_branches (CUDA tensors only): returns (out, branches), the int32
     branch (STAGED or DIRECT) the kernel took in each output tile. Its
-    plain twin is `remap_footprint_plain`.
+    plain twin is `remap_footprint_plain`. The call is the span
+    `vio.undistort` (`utils.trace`).
     """
+    with span("vio.undistort"):
+        return _remap(image, remap, return_branches)
+
+
+def _remap(image: torch.Tensor, remap: torch.Tensor, return_branches: bool):
+    """`bilinear_remap`'s work."""
     if image.device.type == "cpu":
         if return_branches:
             raise ValueError("bilinear_remap: return_branches needs a CUDA "

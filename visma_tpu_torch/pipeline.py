@@ -23,7 +23,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from visma_tpu_torch.filter.config import FilterConfig
 from visma_tpu_torch.filter.msckf import Msckf, _frame_outputs, _frame_step
@@ -32,6 +31,7 @@ from visma_tpu_torch.frontend.tracker import FeatureTracker, TrackerState
 from visma_tpu_torch.utils.graphs import (CallGraph, StepGraph, run_eager,
                                           wants_graph)
 from visma_tpu_torch.utils.misc import resolve_device
+from visma_tpu_torch.utils.trace import span, stage
 
 
 @dataclass(frozen=True)
@@ -66,18 +66,19 @@ class VioPipeline:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def init(self, image0, R0=None, p0=None, v0=None) -> PipelineState:
-        tr = self.tracker.init(self._tensor(image0))
-        fs = self.msckf.init(R0=R0, p0=p0, v0=v0)
-        return PipelineState(tracker=tr, filter=fs)
+        with span("vio.init"):
+            tr = self.tracker.init(self._tensor(image0))
+            fs = self.msckf.init(R0=R0, p0=p0, v0=v0)
+            return PipelineState(tracker=tr, filter=fs)
 
     def step_full(self, state: PipelineState, image, gyro, accel, dts):
         """Per-frame step; also returns the tracker's raw (ids, xp, valid)
-        observations. The two stages are profiler ranges named `frontend`
-        and `filter` (visma_tpu_torch/profile_pipeline.py reads them)."""
-        with record_function("frontend"):
+        observations. The two stages are `utils.trace` stages named
+        `frontend` and `filter`, marked on the device while recording."""
+        with stage("frontend", self.device):
             tr_state, ids, xp, valid = self.tracker._step_impl(
                 state.tracker, self._tensor(image))
-        with record_function("filter"):
+        with stage("filter", self.device):
             frame = {"gyro": self._tensor(gyro), "accel": self._tensor(accel),
                      "dts": self._tensor(dts), "ids": ids, "xp": xp,
                      "valid": valid}
@@ -91,10 +92,11 @@ class VioPipeline:
         dts (S,) with 0-padding: arrays or tensors (a float32 tensor on
         the pipeline's device is not copied). Through a graph, one capture
         per shape, after one eager call."""
-        args = tuple(self._tensor(x) for x in (image, gyro, accel, dts))
-        if self.step_graph is None:
-            return self._step(state, *args)
-        return self.step_graph(state, *args)
+        with span("vio.step"):
+            args = tuple(self._tensor(x) for x in (image, gyro, accel, dts))
+            if self.step_graph is None:
+                return self._step(state, *args)
+            return self.step_graph(state, *args)
 
     def _step(self, state: PipelineState, image, gyro, accel, dts):
         """The whole frame step, as the reference jits `step`
@@ -102,7 +104,8 @@ class VioPipeline:
         return self.step_full(state, image, gyro, accel, dts)[0]
 
     def pose(self, state: PipelineState) -> Tuple[np.ndarray, np.ndarray]:
-        return state.filter.R.cpu().numpy(), state.filter.p.cpu().numpy()
+        with span("vio.pose"):
+            return state.filter.R.cpu().numpy(), state.filter.p.cpu().numpy()
 
     def _run_step(self, state: PipelineState, x: Dict[str, torch.Tensor]):
         """`run`'s step: the frame step, the `_frame_outputs` record and the
@@ -120,11 +123,12 @@ class VioPipeline:
         record per frame plus the tracker's observations obs_ids (N, F),
         obs_xp (N, F, 2), obs_valid (N, F), each stacked over frames.
         `state` is not modified."""
-        xs = {"image": self._tensor(images), "gyro": self._tensor(gyro),
-              "accel": self._tensor(accel), "dts": self._tensor(dts)}
-        if self.run_graph is None:
-            return run_eager(self._run_step, state, xs)
-        return self.run_graph.run(state, xs)
+        with span("vio.run"):
+            xs = {"image": self._tensor(images), "gyro": self._tensor(gyro),
+                  "accel": self._tensor(accel), "dts": self._tensor(dts)}
+            if self.run_graph is None:
+                return run_eager(self._run_step, state, xs)
+            return self.run_graph.run(state, xs)
 
 
 def export_packets(cfg: FilterConfig, outs: Dict[str, torch.Tensor],

@@ -11,14 +11,17 @@ drained 8-frame windows with the host clock and traces one window with
 torch.profiler, behind a window run untraced and a marker kernel
 (`utils.trace.traced`: late in a process the profiler drops a trace's
 first device records), its device ops held to the host's launches. By
-default the mapper replays its executors' CUDA graphs
-(captured by `warmup`; a replay runs no Python, so only the mapper's own
-range `semantic.refine` shows host time); with `--eager` it runs them
-eagerly (`graph=False`), with the CEM's ranges. Prints, per settled
-frame: wall time, the host time of the mapper's and the CEM's ranges,
-device busy time, the device's idle share, device operations beside the
-host's count, and the top operators by device and by host time. Needs a
-CUDA device.
+default the mapper replays its executors' CUDA graphs (captured by
+`warmup`); with `--eager` it runs them eagerly (`graph=False`). Prints,
+per settled frame: wall time, device busy time, the device's idle share,
+device operations beside the host's count, the device time of the CEM's
+stages (`cem.edt`, `cem.occluders`, `cem.raster`, `cem.score`,
+`cem.select`: their marks are replayed with the graph) and of the
+replays' unstaged remainder, the program's spans (`utils.trace`), the
+trace's idle time named by the innermost span open on the host
+(`host.gc` included), the top device operators, and a window with
+recording off against one with `utils.trace.enable()`, in alternating
+pairs. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,11 +38,13 @@ from visma_tpu_torch.io.synthetic_semantic import (BENCH_INTRINSICS,
                                                    bench_scene, gt_detections)
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.semantic import SemanticMapper
+from visma_tpu_torch.profile_pipeline import (print_breakdown,
+                                              print_untraced_spans)
+from visma_tpu_torch.utils import trace as tr
 from visma_tpu_torch.utils.trace import traced
 
-RANGES = ("semantic.refine", "semantic.edt", "semantic.occluders",
-          "semantic.raster", "semantic.score")
 WINDOW = 8
+PAIRS = 4
 WARM = 5
 
 
@@ -47,8 +52,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=WARM + 4 * WINDOW)
     ap.add_argument("--eager", action="store_true",
-                    help="profile the eager mapper (graph=False), with the "
-                         "CEM's ranges")
+                    help="profile the eager mapper (graph=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_semantic: needs a CUDA device")
@@ -98,10 +102,16 @@ def main(argv=None):
         window(i)
         walls.append((time.perf_counter() - t0) / WINDOW * 1e3)
         i += WINDOW
-    trace = traced(lambda: window(i + WINDOW), warm=lambda: window(i),
-                   annotations=RANGES, cpu=True)
+    trace = traced(lambda: window(i + WINDOW), warm=lambda: window(i))
     counts = trace.check() + "".join(
         f"; a take before lost records: {x}" for x in trace.lost)
+    # recording off against on, over the frames the trace ran again (the
+    # first window with recording on captures the marked variants)
+    tr.enable()
+    window(i)
+    tr.disable()
+    since = time.perf_counter_ns()
+    runs = tr.off_against_on(lambda: window(i + WINDOW), PAIRS)
     mapper.finalize()
     terr = [float(np.linalg.norm(mapper.tracks[o].pose_wm[:3, 3]
                                  - T_gt[k][:3, 3]))
@@ -109,26 +119,28 @@ def main(argv=None):
 
     busy, dev_total = trace.busy_ms()
     dev_ms, n_ops = busy / WINDOW, len(trace.ops) / WINDOW
-    host = {k: ms / WINDOW for k, ms in trace.host_ms(RANGES).items()}
     wall = min(walls)
     print(f"spawn frame {spawn_ms:.1f} ms; settled windows ms/frame "
           f"{[round(w, 3) for w in walls]} (host clock, drained and "
           f"synchronised, profiler off); translation errors "
           f"{[round(x, 4) for x in terr]} m")
-    print("host time in ranges, ms/frame (profiler on): "
-          + ", ".join(f"{k} {host.get(k, 0.0):.3f}" for k in RANGES))
     print(f"trace: {counts}")
     print(f"device busy {dev_ms:.3f} ms/frame ({dev_total / WINDOW:.3f} "
           f"summed over {n_ops:.0f} device ops/frame); idle share "
           f"{1 - dev_ms / wall:.3f} of the best profiler-off frame time "
           f"{wall:.3f} ms")
+    print_breakdown(trace, WINDOW, dev_total * 1e3 if args.eager
+                    else trace.replay_us)
     print("top device ops (us a frame, count a frame):")
     for name, us, c in trace.top():
         print(f"  {us / WINDOW:10.2f} {c / WINDOW:7.1f}  {name[:90]}")
-    print("top host events by time, nested time included (us a frame, "
-          "count a frame):")
-    for name, us, c in trace.host_top():
-        print(f"  {us / WINDOW:10.2f} {c / WINDOW:7.1f}  {name[:90]}")
+    q = {k: np.percentile(v, [25, 50, 75]) / WINDOW * 1e3
+         for k, v in runs.items()}
+    print(f"a settled window over {PAIRS} pairs, ms/frame median "
+          f"(quartiles): recording off {q[False][1]:.4f} ({q[False][0]:.4f}-"
+          f"{q[False][2]:.4f}), on {q[True][1]:.4f} ({q[True][0]:.4f}-"
+          f"{q[True][2]:.4f})")
+    print_untraced_spans(since, WINDOW * PAIRS)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from visma_tpu_torch.geom.lie import SE3
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
@@ -50,6 +49,7 @@ from visma_tpu_torch.render.raster import (
     rasterize_depth_chunked_multi, rasterize_depth_chunked_multi_roi)
 from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 from visma_tpu_torch.utils.misc import device_constant, resolve_device
+from visma_tpu_torch.utils.trace import stage
 
 # Shared CEM schedule constants: the mapper's async path and the defaults
 # of refine_pose_cem_batched must agree (async == sync parity).
@@ -200,11 +200,11 @@ def _raster_score_grouped(Cs, mesh_idx, flat, org, occ_w, dt_w, obs_w,
     """ROI raster + score over n*S hypotheses: all windows of the
     iteration in one launch, then one batched score per object against its
     own occluder / dt / evidence windows. Returns (n, S) scores."""
-    mi_all = torch.repeat_interleave(mesh_idx, S)
-    with record_function("semantic.raster"):
+    with stage("cem.raster", flat.device):
+        mi_all = torch.repeat_interleave(mesh_idx, S)
         d = rasterize_depth_chunked_multi_roi(Cs, flat, mi_all, org, intr,
                                               roi)
-    with record_function("semantic.score"):
+    with stage("cem.score", flat.device):
         return occlusion_aware_edge_score(
             d.reshape(n, S, roi[0], roi[1]), occ_w, dt_w, obs_w, tau=tau,
             obs_mass=obs_mass, radius=radius)
@@ -249,7 +249,7 @@ def _render_score_nS(Cs, mesh_idx, mean_R, mean_t, xi, occ, dt, obs, intr,
     obs_w = _crop(obs, origins, roi)
     if occ_poses is not None and n > 1:
         oi = _others_index(n, xi.device)                           # n*(n-1)
-        with record_function("semantic.occluders"):
+        with stage("cem.occluders", xi.device):
             od = rasterize_depth_chunked_multi_roi(
                 Cs, occ_poses[oi], mesh_idx[oi],
                 torch.repeat_interleave(origins, n - 1, dim=0), intr, roi)
@@ -328,7 +328,7 @@ def _cem_fused_body(Cs, mesh_idx, R0, t0, sig0, occ, obs, generator, intr,
     dev = R0.device
     # sweeps sized to the truncation: chamfer takes min(dt, tau), so any
     # pixel farther than the propagation radius reads as big -> tau
-    with record_function("semantic.edt"):
+    with stage("cem.edt", dev):
         dt = edge_distance_transform(obs, iters=int(tau) + 6)
     idx = torch.arange(n, device=dev)
 
@@ -337,33 +337,36 @@ def _cem_fused_body(Cs, mesh_idx, R0, t0, sig0, occ, obs, generator, intr,
     best_score = torch.full((n,), float("inf"), dtype=torch.float32,
                             device=dev)
     for it in range(iters):
-        # plain normal sampling, not antithetic pairs: antithetic elites
-        # cancel in the mean refit and stall the CEM
-        z = (_draw(generator, (n, samples, 6), dev) if noise is None
-             else noise[it])
-        xi = z * sig[:, None, :]
-        xi[:, 0] = 0.0  # always include the current mean
-        # ...and the best-so-far pose, expressed in the current mean's
-        # tangent: re-anchors the search when the mean wanders and makes
-        # the best score monotone by construction
-        mean = SE3(mean_R, mean_t)
-        xi[:, 1] = (mean.inv() @ SE3.from_matrix3x4(best_pose)).log()
-        origins = None if roi is None else _roi_origins(mean_t, intr, roi)
+        with stage("cem.select", dev):
+            # plain normal sampling, not antithetic pairs: antithetic
+            # elites cancel in the mean refit and stall the CEM
+            z = (_draw(generator, (n, samples, 6), dev) if noise is None
+                 else noise[it])
+            xi = z * sig[:, None, :]
+            xi[:, 0] = 0.0  # always include the current mean
+            # ...and the best-so-far pose, expressed in the current mean's
+            # tangent: re-anchors the search when the mean wanders and
+            # makes the best score monotone by construction
+            mean = SE3(mean_R, mean_t)
+            xi[:, 1] = (mean.inv() @ SE3.from_matrix3x4(best_pose)).log()
+            origins = None if roi is None else _roi_origins(mean_t, intr,
+                                                            roi)
         hyp34, scores = _render_score_nS(
             Cs, mesh_idx, mean_R, mean_t, xi, occ, dt, obs, intr, tau,
             roi=roi, origins=origins, occ_poses=occ_poses, radius=radius)
-        order = torch.argsort(scores, dim=1, stable=True)
-        top = order[:, 0]
-        top_score = scores[idx, top]
-        better = top_score < best_score
-        best_pose = torch.where(better[:, None, None], hyp34[idx, top],
-                                best_pose)
-        best_score = torch.minimum(best_score, top_score)
+        with stage("cem.select", dev):
+            order = torch.argsort(scores, dim=1, stable=True)
+            top = order[:, 0]
+            top_score = scores[idx, top]
+            better = top_score < best_score
+            best_pose = torch.where(better[:, None, None], hyp34[idx, top],
+                                    best_pose)
+            best_score = torch.minimum(best_score, top_score)
 
-        elite = xi[idx[:, None], order[:, :n_elite]]               # (n,E,6)
-        sig = elite.std(dim=1, unbiased=False) * 1.1 + 1e-4
-        step = mean @ SE3.exp(elite.mean(dim=1))
-        mean_R, mean_t = step.R, step.t
+            elite = xi[idx[:, None], order[:, :n_elite]]           # (n,E,6)
+            sig = elite.std(dim=1, unbiased=False) * 1.1 + 1e-4
+            step = mean @ SE3.exp(elite.mean(dim=1))
+            mean_R, mean_t = step.R, step.t
     return best_pose, best_score
 
 

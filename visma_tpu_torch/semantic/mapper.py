@@ -38,7 +38,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from visma_tpu_torch.render.camera import Intrinsics
 from visma_tpu_torch.render.likelihood import (edge_distance_transform,
@@ -53,6 +52,7 @@ from visma_tpu_torch.semantic.cem import (CEM_TAU, _cem_run, _sigma6,
                                           retrieval_scores)
 from visma_tpu_torch.utils.graphs import CallGraph, wants_graph
 from visma_tpu_torch.utils.misc import resolve_device
+from visma_tpu_torch.utils.trace import span
 
 
 @dataclass
@@ -410,7 +410,8 @@ class SemanticMapper:
         if name in self.mesh_db:
             T_cm = self._init_pose_cm(bbox, name)
         elif edge_map is not None:
-            got = self.retrieve_shape(bbox, edge_map, dt=dt)
+            with span("semantic.retrieve"):
+                got = self.retrieve_shape(bbox, edge_map, dt=dt)
             if got is None:
                 return None
             name, T_cm, _ = got
@@ -433,11 +434,16 @@ class SemanticMapper:
         the right shape on the mapper's device passes through as it is
         (the production path: depth_edge output stays on the card).
 
-        Profiler ranges (visma_tpu_torch/profile_semantic.py reads them):
-        `semantic.spawn` and `semantic.refine` here; inside the CEM
-        `semantic.edt`, `semantic.occluders`, `semantic.raster` (setup +
-        chunk_raster_batched) and `semantic.score` (edge_score: edges,
-        chamfer and coverage in one kernel call)."""
+        `utils.trace` spans: `semantic.step` (the call), `semantic.spawn`,
+        `semantic.retrieve` (inside a spawn) and `semantic.refine` here;
+        inside the CEM the stages `cem.edt`, `cem.occluders`,
+        `cem.raster` (setup + chunk_raster_batched), `cem.score`
+        (edge_score: edges, chamfer and coverage in one kernel call) and
+        `cem.select` (sampling, the elite sort, the refit)."""
+        with span("semantic.step"):
+            self._step(gwc, edge_map, bboxes)
+
+    def _step(self, gwc, edge_map, bboxes) -> None:
         H, W = self.intr.rows, self.intr.cols
         if tuple(edge_map.shape) != (H, W):
             if isinstance(edge_map, torch.Tensor):
@@ -466,7 +472,7 @@ class SemanticMapper:
                         # one distance transform shared by every
                         # retrieval this frame
                         dt = edge_distance_transform(edge_map)
-                    with record_function("semantic.spawn"):
+                    with span("semantic.spawn"):
                         self._spawn(bb, gwc, edge_map, dt=dt)
 
         tracks = list(self.tracks.values())
@@ -488,7 +494,7 @@ class SemanticMapper:
                          and roi is not None and bboxes is None
                          and self._dev is not None
                          and self._dev["oids"] == oids)
-            with record_function("semantic.refine"):
+            with span("semantic.refine"):
                 if can_async:
                     self._step_async(tracks, G, G_cw, edge_map, iters,
                                      samples, sigma, roi)

@@ -61,6 +61,20 @@ outputs would see them change. On the CPU the call runs on the buffers
 without capture and its outputs pass through static output buffers too,
 so that a caller's aliasing shows there as well.
 
+Tracing (`utils.trace`): each frame of `StepGraph.run` and each call of a
+`CallGraph` records the spans `graph.copy_in` (the copies into the
+buffers; a run's first frame also finds its buffers and copies the start
+state in), `graph.launch` (the replay; on the CPU the step on the
+buffers) and `graph.copy_out` (the copies of the outputs; a run's last
+frame also clones the final state out), and `graph.capture` around each
+warm-up step and each capture. A graph keeps one captured variant per
+recording state: one captured while recording is off, node for node the
+step as it is, and, once a call comes while recording is on, a marked
+variant captured with the step's stage marks (`trace.stage`). The marked
+variants are counted in `marked_captures`, apart from `captures`,
+`capture_ms` and `pool_bytes`, which count the graphs the program runs
+off.
+
 Captures cannot nest: a runner entered while a capture is running on the
 current stream raises `GraphCaptureError` (a captured body calls the eager
 form of what it runs). `loop_runner` picks a loop's StepGraph out of an
@@ -71,7 +85,7 @@ from __future__ import annotations
 import time
 import traceback
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
 from pathlib import Path
 from typing import Callable, Optional
@@ -80,6 +94,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from visma_tpu_torch import _kernels
+from visma_tpu_torch.utils import trace
 
 _TORCH = str(Path(torch.__file__).parent)
 
@@ -218,18 +233,24 @@ def _failed_at(exc: BaseException) -> str:
 
 
 @dataclass
+class _Variant:
+    """A captured graph of a run shape or input shape."""
+    graph: torch.cuda.CUDAGraph
+    outputs: list                # the captured step's outputs
+    out_spec: object
+    launches: tuple              # what a replay counts
+
+
+@dataclass
 class _Entry:
-    """The buffers, and once captured the graph, of one run shape."""
+    """The buffers, and once captured the graphs, of one run shape."""
     s_spec: object
     x_spec: object
     state: list                  # static state buffers, one a state leaf
     inputs: list                 # static buffers of one frame's inputs
     stream: Optional[torch.cuda.Stream]   # warm-ups and capture (CUDA)
     warm: int = 0                # eager frames stepped on these buffers
-    graph: Optional[torch.cuda.CUDAGraph] = None
-    outputs: Optional[list] = None        # the captured step's outputs
-    out_spec: object = None
-    launches: Optional[tuple] = None      # what a replay counts
+    variants: dict = field(default_factory=dict)   # marked -> _Variant
 
 
 class _Captures:
@@ -241,6 +262,8 @@ class _Captures:
         self.captures = 0            # graphs captured by this runner
         self.capture_ms = []         # host ms of each capture
         self.pool_bytes = []         # device memory each capture reserved
+        self.marked_captures = 0     # marked variants captured (see the
+        # module), not in the three above
 
     @staticmethod
     def _side_stream(device: torch.device):
@@ -248,11 +271,32 @@ class _Captures:
         CPU, where nothing is captured."""
         return torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def _capture(self, stream, fn: Callable):
+    def _variant(self, key, marked: bool, fn: Callable) -> _Variant:
+        """The variant of the entry `self._entries[key]` captured from
+        `fn()` (which returns (output leaves, spec)), kept in the entry
+        under `marked`. A failed capture drops an entry that has no other
+        graph (the next call warms up anew) and raises."""
+        entry = self._entries[key]
+        with trace.span("graph.capture"):
+            try:
+                graph, (outputs, out_spec), launches = self._capture(
+                    entry.stream, fn, marked)
+            except GraphCaptureError:
+                if not entry.variants:
+                    del self._entries[key]
+                raise
+        v = entry.variants[marked] = _Variant(graph, outputs, out_spec,
+                                              launches)
+        return v
+
+    def _capture(self, stream, fn: Callable, marked: bool = False):
         """`fn()` captured on `stream` into a new CUDA graph, in its own
         memory pool, without making the host wait. Returns (graph, what
         fn returned, what a replay counts: `_replayed`'s argument). Raises
-        `GraphCaptureError` naming the line that failed."""
+        `GraphCaptureError` naming the line that failed. `marked`: the
+        capture records the stage marks (counted in `marked_captures`)."""
+        if marked:
+            trace.prepare(stream.device)
         cur = torch.cuda.current_stream(stream.device)
         on_card = stream.device.type == "cuda"
         reserved = torch.cuda.memory_reserved(stream.device) if on_card else 0
@@ -289,6 +333,9 @@ class _Captures:
                 launches += (_graph_ops(graph),)
                 graph.instantiate()
         cur.wait_stream(stream)
+        if marked:
+            self.marked_captures += 1
+            return graph, out, launches
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         self.pool_bytes.append(
             torch.cuda.memory_reserved(stream.device) - reserved
@@ -343,6 +390,44 @@ class StepGraph(_Captures):
         _refuse_nesting(x_leaves[0].device)
         key = (str(s_spec), str(x_spec), _signature(s_leaves),
                _signature([x[0] for x in x_leaves]))
+        marked = trace.recording()
+        record = final = None
+        for i in range(n):
+            with trace.span("graph.copy_in"):
+                if i == 0:
+                    entry = self._entry(key, s_leaves, s_spec, x_leaves,
+                                        x_spec)
+                for b, x in zip(entry.inputs, x_leaves):
+                    b.copy_(x[i])
+            v = entry.variants.get(marked)
+            if v is None and entry.stream is not None \
+                    and entry.warm >= self.warmup:
+                v = self._variant(key, marked, lambda: self._step(entry))
+            if v is not None:
+                with trace.span("graph.launch"):
+                    v.graph.replay()
+                    self._replayed(v.launches)
+                outs, out_spec = v.outputs, v.out_spec
+            else:
+                with trace.span("graph.launch" if entry.stream is None
+                                else "graph.capture"):
+                    entry.warm += 1
+                    outs, out_spec = self._on_side(
+                        entry.stream, lambda: self._step(entry))
+            with trace.span("graph.copy_out"):
+                if record is None:
+                    record = [torch.empty((n, *t.shape), dtype=t.dtype,
+                                          device=t.device) for t in outs]
+                for r, t in zip(record, outs):
+                    r[i].copy_(t)
+                if i == n - 1:
+                    final = pytree.tree_unflatten(
+                        [b.clone() for b in entry.state], entry.s_spec)
+        return final, pytree.tree_unflatten(record, out_spec)
+
+    def _entry(self, key, s_leaves, s_spec, x_leaves, x_spec) -> _Entry:
+        """The buffers of a run shape, made on its first run; the start
+        state copied into them."""
         entry = self._entries.get(key)
         if entry is None:
             entry = self._entries[key] = _Entry(
@@ -355,35 +440,7 @@ class StepGraph(_Captures):
         else:
             for b, t in zip(entry.state, s_leaves):
                 b.copy_(t)
-        record = None
-        for i in range(n):
-            for b, x in zip(entry.inputs, x_leaves):
-                b.copy_(x[i])
-            if entry.graph is None and entry.stream is not None \
-                    and entry.warm >= self.warmup:
-                try:
-                    entry.graph, (entry.outputs, entry.out_spec), \
-                        entry.launches = self._capture(
-                            entry.stream, lambda: self._step(entry))
-                except GraphCaptureError:
-                    del self._entries[key]
-                    raise
-            if entry.graph is not None:
-                entry.graph.replay()
-                self._replayed(entry.launches)
-                outs, out_spec = entry.outputs, entry.out_spec
-            else:
-                entry.warm += 1
-                outs, out_spec = self._on_side(entry.stream,
-                                               lambda: self._step(entry))
-            if record is None:
-                record = [torch.empty((n, *t.shape), dtype=t.dtype,
-                                      device=t.device) for t in outs]
-            for r, t in zip(record, outs):
-                r[i].copy_(t)
-        final = pytree.tree_unflatten([b.clone() for b in entry.state],
-                                      entry.s_spec)
-        return final, pytree.tree_unflatten(record, out_spec)
+        return entry
 
     def _step(self, entry: _Entry):
         """One step on the static buffers: the body, then its new state
@@ -412,15 +469,14 @@ class StepGraph(_Captures):
 
 @dataclass
 class _CallEntry:
-    """The buffers, and once captured the graph, of one input shape."""
+    """The buffers, and once captured the graphs, of one input shape."""
     spec: object
     inputs: list                 # static buffers of the inputs
     stream: Optional[torch.cuda.Stream]   # warm-ups and capture (CUDA)
     warm: int = 0                # eager calls made on these buffers
-    graph: Optional[torch.cuda.CUDAGraph] = None
-    outputs: Optional[list] = None        # static outputs (see the module)
-    out_spec: object = None
-    launches: Optional[tuple] = None      # what a replay counts
+    outputs: Optional[list] = None        # static outputs of the eager
+    out_spec: object = None               # calls (see the module)
+    variants: dict = field(default_factory=dict)   # marked -> _Variant
 
 
 class CallGraph(_Captures):
@@ -439,39 +495,44 @@ class CallGraph(_Captures):
         leaves, spec = pytree.tree_flatten(inputs)
         _refuse_nesting(leaves[0].device)
         key = (str(spec), _signature(leaves))
-        entry = self._entries.get(key)
-        if entry is None:
-            entry = self._entries[key] = _CallEntry(
-                spec=spec,
-                inputs=[torch.empty_like(t,
-                                         memory_format=torch.contiguous_format)
+        marked = trace.recording()
+        with trace.span("graph.copy_in"):
+            entry = self._entries.get(key)
+            if entry is None:
+                entry = self._entries[key] = _CallEntry(
+                    spec=spec,
+                    inputs=[torch.empty_like(
+                        t, memory_format=torch.contiguous_format)
                         for t in leaves],
-                stream=self._side_stream(leaves[0].device))
-        for b, t in zip(entry.inputs, leaves):
-            b.copy_(t)
-        if entry.graph is None and entry.stream is not None \
-                and entry.warm >= self.warmup:
-            try:
-                entry.graph, (entry.outputs, entry.out_spec), \
-                    entry.launches = self._capture(
-                        entry.stream, lambda: self._call(entry))
-            except GraphCaptureError:
-                del self._entries[key]
-                raise
-        if entry.graph is not None:
-            entry.graph.replay()
-            self._replayed(entry.launches)
-        else:
-            entry.warm += 1
-            outs, out_spec = self._on_side(entry.stream,
-                                           lambda: self._call(entry))
-            if entry.outputs is None:
-                entry.outputs = [torch.empty_like(t) for t in outs]
-                entry.out_spec = out_spec
-            for b, t in zip(entry.outputs, outs):
+                    stream=self._side_stream(leaves[0].device))
+            for b, t in zip(entry.inputs, leaves):
                 b.copy_(t)
-        return pytree.tree_unflatten([t.clone() for t in entry.outputs],
-                                     entry.out_spec)
+        v = entry.variants.get(marked)
+        if v is None and entry.stream is not None \
+                and entry.warm >= self.warmup:
+            v = self._variant(key, marked, lambda: self._call(entry))
+        eager = None
+        if v is not None:
+            with trace.span("graph.launch"):
+                v.graph.replay()
+                self._replayed(v.launches)
+            outputs, out_spec = v.outputs, v.out_spec
+        else:
+            with trace.span("graph.launch" if entry.stream is None
+                            else "graph.capture"):
+                entry.warm += 1
+                eager, out_spec = self._on_side(entry.stream,
+                                                lambda: self._call(entry))
+        with trace.span("graph.copy_out"):
+            if eager is not None:
+                if entry.outputs is None:
+                    entry.outputs = [torch.empty_like(t) for t in eager]
+                    entry.out_spec = out_spec
+                for b, t in zip(entry.outputs, eager):
+                    b.copy_(t)
+                outputs = entry.outputs
+            return pytree.tree_unflatten([t.clone() for t in outputs],
+                                         out_spec)
 
     def _call(self, entry: _CallEntry):
         """fn on the static input buffers. Returns (output leaves, spec)."""

@@ -68,17 +68,24 @@ class Timer:
 @contextmanager
 def device_trace(logdir: Optional[str] = None):
     """torch.profiler scope: CPU and, where there is a card, CUDA
-    activities; writes `logdir/trace.json` (Chrome trace format) on exit.
-    With logdir=None it does nothing."""
+    activities; writes `logdir/trace.json` (Chrome trace format) on exit,
+    the program's spans (`utils.trace`) among its ranges. With logdir=None
+    it does nothing."""
     if logdir is None:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from visma_tpu_torch.utils import trace
+
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
+    trace.ranges(True)
+    try:
+        with profile(activities=acts) as prof:
+            yield
+    finally:
+        trace.ranges(False)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
