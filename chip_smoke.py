@@ -38,8 +38,12 @@ card at the shapes the path gives it:
             eager mapper's (graph=False; run in turns graph / eager /
             graph / eager, settled ms/frame of each); kernels
             chunk_raster_frame, chunk_raster_batched (also on a set of
-            windows made to hurt their coarse cull), depth_edge and
-            edge_score (one call a CEM iteration and a retrieval).
+            windows made to hurt their coarse cull), triangle_setup (its
+            tables bit for bit the PyTorch chain's at the settled
+            iteration's 96 and 12 windows and at full frames; one call
+            before each K4 launch and one for the ground-truth render),
+            depth_edge and edge_score (one call a CEM iteration and a
+            retrieval).
   ingest    the VIO scene as the camera delivers it: 240 raw distorted
             600x960 uint8 frames (the scene rendered with the Corvis
             undistorter's output camera and warped by the inverse ATAN
@@ -1387,6 +1391,65 @@ def adversarial_windows(mean, mesh_idx, origins, roi):
             torch.stack(orgs))
 
 
+def setup_checks(Cs, batches, kernels, reps):
+    """The triangle setup's kernel (csrc/tri_setup.cu) against its plain
+    twin, the PyTorch chain `_prep_chunks_all` on the gathered corners, on
+    the card: the plane table, the chunk lists and the counts bit for bit
+    at each batch {name: (poses, mesh index, origins or None, intr)} (the
+    16-px windows where origins are given, the 32-px frame elsewhere); both
+    timed, the kernel beside its bound at the first batch."""
+    import torch
+
+    from visma_tpu_torch.render import raster as rs
+
+    times = {}
+    for name, (poses, mi, org, it) in batches.items():
+        sub = rs.SUB_FRAME if org is None else rs.SUB_ROI
+
+        def kernel(poses=poses, mi=mi, org=org, it=it, sub=sub):
+            return rs.triangle_setup(Cs, mi, poses, it, origins=org,
+                                     sub_px=sub)
+
+        def chain(poses=poses, mi=mi, org=org, it=it, sub=sub):
+            return rs._prep_chunks_all(Cs[mi], poses, it, origins=org,
+                                       sub_px=sub)
+
+        n0 = rs.triangle_setup.launches
+        got, ref = kernel(), chain()
+        torch.cuda.synchronize()
+        check(rs.triangle_setup.launches == n0 + 1,
+              "triangle_setup did not launch once")
+        diff = [int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                for g, r in zip(got, ref)]
+        check(diff == [0, 0, 0], f"triangle_setup ({name}): planes, ids and "
+                                 f"counts differ from the chain in {diff}")
+        times[name] = (cuda_ms(kernel, reps=reps), cuda_ms(chain, reps=reps))
+        if not kernels or kernels[-1]["name"] != "triangle_setup":
+            planes, ids, counts = got
+            B, nc = planes.shape[:2]
+            # inputs read once (the stack, poses, origins, indices), the
+            # outputs written once, the chunk bboxes written and read back
+            n_bytes = (nbytes(Cs, poses, planes, ids, counts, mi)
+                       + (0 if org is None else nbytes(org)) + 2 * B * nc * 16)
+            st_bound, st_by = bound(n_bytes, 0)
+            kernels.append({
+                "name": "triangle_setup", "route": "cuda",
+                "source": "visma_tpu_torch/csrc/tri_setup.cu",
+                "replaces": "none: XLA ops at visma_tpu/render/raster.py "
+                            "(_prep_chunks_all)",
+                "max_abs_err": 0.0, "ms": times[name][0],
+                "plain_ms": times[name][1], "bound_ms": st_bound,
+                "bound_by": st_by, "library_ms": None, "shape": name,
+                "bytes": n_bytes})
+        log(f"triangle_setup ({name}: {tuple(got[0].shape)} planes, "
+            f"{int(got[2].sum())} listed hits): bit for bit the chain's; "
+            f"kernel {times[name][0]:.4f} ms, the chain "
+            f"{times[name][1]:.4f} ms")
+    kernels[-1]["ms_by_shape"] = times
+    log(f"triangle_setup bound at {kernels[-1]['shape']}: "
+        f"{kernels[-1]['bound_ms']:.4f} ms ({kernels[-1]['bytes']:.3e} B)")
+
+
 def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
                            n_hyp, plain_poses, reps=20):
     """K3, K4, K5 against their plain versions at the shapes of the path,
@@ -1491,6 +1554,11 @@ def semantic_kernel_checks(mapper, intr, roi, all_poses, mesh_idx, kernels,
                     "all_pairs_of_hitting_chunks_ms":
                         k4_flop_chunks / F32_FLOP_PER_S * 1e3,
                     "prep_chunks_all_ms": prep_ms})
+
+    setup_checks(Cs, {"hypotheses": (hyp, hyp_mi, hyp_org, roi_intr),
+                      "occluders": (occ_pose, occ_mi, occ_org, roi_intr),
+                      "frame": (mean[:2], mi[:2], None, intr)},
+                 kernels, reps)
 
     # K3: one full-frame pose per mesh against plain and the oracle
     f_pose = torch.as_tensor(all_poses[0, :2], device=dev)
@@ -1826,6 +1894,27 @@ def warmup_launches(mapper, n_objects):
             "edge_score": calls * (iters + retr)}
 
 
+def setup_launches():
+    """A reading of the triangle setup's launch counter, started now:
+    called with the run's launches of the other kernels, it checks that
+    the run went through the setup's kernel once before each K4 launch
+    and once for the renderer's one ground-truth render (K3), and returns
+    its count."""
+    from visma_tpu_torch.render import raster as rs
+
+    start = rs.triangle_setup.launches
+
+    def read(launches):
+        n = rs.triangle_setup.launches - start
+        check(n == launches["chunk_raster_batched"] + 1,
+              f"semantic: {n} triangle setups, not one a K4 launch "
+              f"({launches['chunk_raster_batched']}) and one for the "
+              f"ground-truth render")
+        return n
+
+    return read
+
+
 def executor_log(mapper):
     """{executor key: (captures, capture ms, pool MB)} of a mapper's
     executors, for the log."""
@@ -1889,6 +1978,7 @@ def semantic_phase(dev, kernels):
     semantic_kernel_checks(mapper, intr, SEM_ROI, all_poses, mesh_idx,
                            kernels, n_hyp=24, plain_poses=8)
 
+    setups = setup_launches()
     res, launches = launches_of(semantic_run, mapper, intr, names,
                                 SEM_FRAMES, SEM_WINDOW, SEM_WARM,
                                 sync_counter)
@@ -1898,6 +1988,7 @@ def semantic_phase(dev, kernels):
     want = expected_semantic_launches(SEM_FRAMES, SEM_OBJECTS,
                                       res["n_stepped"], mapper)
     check(launches == want, f"semantic launches {launches} != {want}")
+    launches["triangle_setup"] = setups(launches)
     check(mapper.captures == warm_caps,
           f"the frames captured anew: {executor_log(mapper)}")
 
@@ -1905,10 +1996,12 @@ def semantic_phase(dev, kernels):
     for name in ("eager", "graph", "eager"):
         m = make(False) if name == "eager" else make(None, mapper.mrenderer)
         warm_s[name].append(m.warmup(SEM_OBJECTS))
+        setups = setup_launches()
         r, got = launches_of(semantic_run, m, intr, names, SEM_FRAMES,
                              SEM_WINDOW, SEM_WARM, sync_counter)
         check_semantic_gates(r, names)
         check(got == want, f"semantic launches ({name} run) {got} != {want}")
+        setups(got)
         runs[name].append(r)
     check(mapper.captures == warm_caps,
           f"the repeat run captured: {executor_log(mapper)}")

@@ -307,10 +307,12 @@ def test_chunk_raster_batched_matches_plain_and_crop(dev):
                                     rng.integers(0, 500 - 256, n)], 1),
                           dtype=torch.float32, device=dev)
     n0 = trs.chunk_raster_batched.launches
+    s0 = trs.triangle_setup.launches
     got = trs.rasterize_depth_chunked_multi_roi(r.Cs, poses, mi, org,
                                                 BENCH_INTR, roi)
     torch.cuda.synchronize()
     assert trs.chunk_raster_batched.launches == n0 + 1
+    assert trs.triangle_setup.launches == s0 + 1
     ref = trs.rasterize_depth_chunked_multi_roi_plain(r.Cs, poses, mi, org,
                                                       BENCH_INTR, roi)
     _assert_depth_equal(got, ref, "roi windows")
@@ -356,6 +358,143 @@ def test_chunk_raster_on_windows_made_to_hurt_the_cull(dev):
     full_ref = trs.rasterize_depth_chunked_multi_plain(
         r.Cs, a_pose[pick], a_mi[pick], BENCH_INTR)
     _assert_depth_equal(full, full_ref, "adversarial poses, full frames")
+
+
+# ---------------------------------------------------------------------------
+# The triangle setup (csrc/tri_setup.cu) against its plain twin
+# ---------------------------------------------------------------------------
+
+ROI = (256, 384)
+
+
+def _assert_tables_equal(got, ref, what):
+    """planes, ids and counts equal bit for bit (the planes compared as
+    int32, so that -0 against +0 and NaN payloads count)."""
+    for name, g, r in zip(("planes", "ids", "counts"), got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype, (what, name)
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        diff = int((g != r).sum())
+        assert diff == 0, f"{what}: {diff} of {g.numel()} {name} differ"
+
+
+def _settled_windows(dev):
+    """The bench stack and the windows of one settled CEM iteration on
+    the 4-object scene: 96 hypothesis windows (24 an object) and the 12
+    occluder windows, as (poses, mesh index, origins)."""
+    from visma_tpu_torch.io.synthetic_semantic import bench_scene
+    from visma_tpu_torch.semantic.cem import _others_index, _roi_origins
+    from visma_tpu_torch.time_kernels import hypothesis_windows
+
+    r = _bench_stack(dev)
+    names, _, _, _, all_poses = bench_scene(1, 4)
+    mean = torch.as_tensor(all_poses[0], device=dev)
+    mi = torch.as_tensor([r.index(n) for n in names], device=dev)
+    oi = _others_index(4, dev)
+    occ_org = torch.repeat_interleave(
+        _roi_origins(mean[:, :, 3], BENCH_INTR, ROI), 3, dim=0)
+    return r, {"hypotheses": hypothesis_windows(mean, mi, BENCH_INTR, ROI,
+                                                24),
+               "occluders": (mean[oi], mi[oi], occ_org)}
+
+
+@pytest.mark.parametrize("batch,windows", [("hypotheses", 96),
+                                           ("occluders", 12)])
+def test_triangle_setup_is_the_chain_at_the_settled_cem(dev, batch, windows):
+    """The settled CEM's two setups (16-px subtiles of 256x384 windows, both
+    bench meshes, 41 chunks): the kernel's tables are the PyTorch chain's on
+    the card bit for bit, in one launch of the wrapper, and K4 draws the
+    same image from either."""
+    r, batches = _settled_windows(dev)
+    poses, mi, org = batches[batch]
+    intr = trs._roi_intr(BENCH_INTR, ROI)
+    n0 = trs.triangle_setup.launches
+    got = trs.triangle_setup(r.Cs, mi, poses, intr, origins=org,
+                             sub_px=trs.SUB_ROI)
+    torch.cuda.synchronize()
+    assert trs.triangle_setup.launches == n0 + 1
+    ref = trs._prep_chunks_all(r.Cs[mi], poses, intr, origins=org,
+                               sub_px=trs.SUB_ROI)
+    assert got[0].shape == (windows, 41, 128, 12)
+    _assert_tables_equal(got, ref, batch)
+    assert int(ref[2].sum()) > 0
+    depth = trs.chunk_raster_batched(*got, intr)
+    assert int(torch.isfinite(depth).sum()) > 1000
+    assert torch.equal(depth, trs.chunk_raster_batched(*ref, intr))
+
+
+def test_triangle_setup_is_the_chain_on_full_frames(dev):
+    """K3's setup: 500x960 frames at 32-px subtiles, no window, one pose a
+    bench mesh; tables bit for bit, and K3's images equal."""
+    r = _bench_stack(dev)
+    poses = torch.as_tensor(_scene_poses(2, 1), device=dev)
+    mi = torch.tensor([0, 1], device=dev)
+    got = trs.triangle_setup(r.Cs, mi, poses, BENCH_INTR,
+                             sub_px=trs.SUB_FRAME)
+    ref = trs._prep_chunks_all(r.Cs[mi], poses, BENCH_INTR,
+                               sub_px=trs.SUB_FRAME)
+    torch.cuda.synchronize()
+    _assert_tables_equal(got, ref, "full frames")
+    for b in range(2):
+        one = [t[b:b + 1] for t in got]
+        depth = trs.chunk_raster_frame(*one, BENCH_INTR)
+        assert int(torch.isfinite(depth).sum()) > 1000
+        assert torch.equal(depth, trs.chunk_raster_frame(
+            *[t[b:b + 1] for t in ref], BENCH_INTR))
+
+
+def _awkward_batch(dev):
+    """A 2-mesh stack of 300 faces (the last chunk padded) with degenerate
+    faces (a repeated corner, collinear corners, every corner at the
+    model origin, the stack's zero-padded tail) at poses that clip: in
+    front, straddling the camera plane (z-clipped, corners behind it and at
+    |z| < 1e-9), beyond the far plane, far off the window, and at the
+    identity; mesh indices int32 with a negative one."""
+    rng = np.random.default_rng(7)
+    C = rng.uniform(-0.6, 0.6, (2, 300, 3, 3)).astype(np.float32)
+    C[:, :20, 1] = C[:, :20, 0]
+    C[:, 20:40, 2] = 2.0 * C[:, 20:40, 1] - C[:, 20:40, 0]
+    C[:, 40:60] = 0.0
+    C[1, 250:] = C[1, 250:, :1]
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (6, 1, 1))
+    poses[:, :, 3] = [[0.1, 0.0, 2.0], [0.0, 0.1, 0.3], [0.0, 0.0, 7.9],
+                      [60.0, 0.0, 2.0], [0.0, 0.0, 0.0], [-0.2, 0.1, 1.2]]
+    poses[5, :, :3] = np.array([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0],
+                                [-1.0, 0.0, 0.0]], np.float32)
+    mi = torch.tensor([0, 1, 0, 1, 0, -1], dtype=torch.int32, device=dev)
+    org = torch.tensor([[288.0, 122.0], [300.0, 100.0], [288.0, 122.0],
+                        [0.0, 0.0], [288.0, 122.0], [250.0, 140.0]],
+                       device=dev)
+    return (torch.as_tensor(C, device=dev), mi,
+            torch.as_tensor(poses, device=dev), org)
+
+
+@pytest.mark.parametrize("sub_px", [16, 32])
+def test_triangle_setup_is_the_chain_on_awkward_triangles(dev, sub_px):
+    """z-clipped, degenerate, off-window and padded triangles: 16-px
+    subtiles of 256x384 windows, and 32-px subtiles of the 500x960 frame;
+    tables bit for bit and the images equal."""
+    Cs, mi, poses, org = _awkward_batch(dev)
+    if sub_px == trs.SUB_ROI:
+        intr, origins = trs._roi_intr(BENCH_INTR, ROI), org
+    else:
+        intr, origins = BENCH_INTR, None
+    got = trs.triangle_setup(Cs, mi, poses, intr, origins=origins,
+                             sub_px=sub_px)
+    ref = trs._prep_chunks_all(Cs[mi.long()], poses, intr, origins=origins,
+                               sub_px=sub_px)
+    torch.cuda.synchronize()
+    _assert_tables_equal(got, ref, f"awkward triangles, {sub_px}-px")
+    ok = ref[0][..., 2] != -1.0
+    assert 0 < int(ok.sum()) < ok.numel() and int(ref[2].sum()) > 0
+    if sub_px == trs.SUB_ROI:
+        assert torch.equal(trs.chunk_raster_batched(*got, intr),
+                           trs.chunk_raster_batched(*ref, intr))
+    else:
+        for b in range(poses.shape[0]):
+            assert torch.equal(
+                trs.chunk_raster_frame(*[t[b:b + 1] for t in got], intr),
+                trs.chunk_raster_frame(*[t[b:b + 1] for t in ref], intr))
 
 
 @pytest.mark.parametrize("shape", [(24, 256, 384), (3, 500, 960),

@@ -292,3 +292,118 @@ def test_table_equals_reference_transposed(renderer, sub_px):
             n = int(tcnt[b, s])
             assert set(tids[b, s, :n].tolist()) \
                 == set(jids[b, :n, jgrid[s]].tolist())
+
+
+# ---------------------------------------------------------------------------
+# triangle_setup: the setup's wrapper; on the CPU its plain twin
+# ---------------------------------------------------------------------------
+
+def setup_args(renderer, B=4):
+    return (renderer.Cs, torch.as_tensor(MESH[:B]),
+            torch.as_tensor(poses(B, 1)), torch.as_tensor(ORG[:B]))
+
+
+def _bad_setup_args(renderer, case):
+    Cs, mi, p, org = setup_args(renderer)
+    if case == "device":
+        p = p.to("meta")
+    elif case == "stack_dtype":
+        Cs = Cs.double()
+    elif case == "pose_dtype":
+        p = p.double()
+    elif case == "origin_dtype":
+        org = org.long()
+    elif case == "index_dtype":
+        mi = mi.to(torch.int16)
+    elif case == "stack_shape":
+        Cs = Cs.reshape(Cs.shape[0], -1, 9)
+    elif case == "pose_shape":
+        p = torch.cat([p, p[:, :1]], dim=1)            # (B,4,4) rows
+    elif case == "index_shape":
+        mi = mi[:3]
+    elif case == "origin_shape":
+        org = org[:, :1]
+    elif case == "stack_contiguity":
+        Cs = Cs.transpose(2, 3)
+    return Cs, mi, p, org
+
+
+@pytest.mark.parametrize("case", [
+    "device", "stack_dtype", "pose_dtype", "origin_dtype", "index_dtype",
+    "stack_shape", "pose_shape", "index_shape", "origin_shape",
+    "stack_contiguity"])
+def test_triangle_setup_refuses_bad_arguments(renderer, case):
+    """Wrong device, dtype, shape or contiguity raises on either path, before
+    any work (a CUDA tensor would hand the kernel raw pointers)."""
+    Cs, mi, p, org = _bad_setup_args(renderer, case)
+    with pytest.raises(ValueError):
+        TR.triangle_setup(Cs, mi, p, intrinsics(48, 64), origins=org,
+                          sub_px=16)
+
+
+def test_triangle_setup_plain_path_is_prep_chunks_all(renderer):
+    """On the CPU the wrapper is `_prep_chunks_all` on the gathered corners
+    (an int32 index too), and mesh_idx None renders mesh 0 at every pose."""
+    Cs, mi, p, org = setup_args(renderer)
+    intr = intrinsics(48, 64)
+    got = TR.triangle_setup(Cs, mi.to(torch.int32), p, intr, origins=org,
+                            sub_px=16)
+    ref = TR._prep_chunks_all(Cs[mi], p, intr, origins=org, sub_px=16)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    got = TR.triangle_setup(Cs[:1], None, p, intr, sub_px=32)
+    ref = TR._prep_chunks_all(Cs[:1].expand(4, -1, -1, -1), p, intr,
+                              sub_px=32)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_pack_chunks_id_order_is_pinned():
+    """Four chunks with hand-made bboxes on a 2x3 grid of 16-px subtiles:
+    each list holds the hitting chunks ascending, then the rest ascending,
+    the order the kernel writes."""
+    intr = intrinsics(32, 48)
+    chunk = 2
+    # chunk bboxes (x0, x1, y0, y1): 0 in subtile (0, 2) only, 1 over the
+    # whole window, 2 dead, 3 over subtiles (0..1, 0..1)
+    boxes = [(40.0, 44.0, 2.0, 9.0), (-5.0, 60.0, -5.0, 40.0),
+             (1e9, -1e9, 1e9, -1e9), (3.0, 20.0, 15.0, 16.0)]
+    x0, x1, y0, y1 = (torch.tensor([[b[k] for b in boxes for _ in range(chunk)]])
+                      for k in range(4))
+    tri = torch.zeros((1, 4 * chunk, 12))
+    _, ids, counts = TR._pack_chunks(tri, x0, x1, y0, y1, intr, chunk, 16)
+    assert counts.tolist() == [[2, 2, 2, 2, 2, 1]]
+    assert ids[0].tolist() == [[1, 3, 0, 2], [1, 3, 0, 2], [0, 1, 2, 3],
+                               [1, 3, 0, 2], [1, 3, 0, 2], [1, 0, 2, 3]]
+
+
+@pytest.mark.parametrize("sub_px", [16, 32])
+def test_triangle_setup_lists_against_a_loop(renderer, sub_px):
+    """The setup's lists on rendered poses against a loop over the chunk
+    bboxes with `_pack_chunks`' comparisons: per subtile the hitting chunk
+    ids ascending, then the rest ascending, and the count."""
+    Cs, mi, p, org = setup_args(renderer)
+    intr = intrinsics(45, 70)
+    _, ids, counts = TR.triangle_setup(Cs, mi, p, intr, origins=org,
+                                       sub_px=sub_px)
+    _, _, x0, x1, y0, y1 = TR._planes_batched(Cs[mi], p, intr, origins=org)
+    B, nc = ids.shape[0], ids.shape[2]
+    pad = nc * 128 - x0.shape[1]
+
+    def chunks(a, value, reduce):
+        a = torch.nn.functional.pad(a, (0, pad), value=value)
+        return reduce(a.reshape(B, nc, 128), -1).values
+
+    cx0, cx1 = chunks(x0, 1e9, torch.min), chunks(x1, -1e9, torch.max)
+    cy0, cy1 = chunks(y0, 1e9, torch.min), chunks(y1, -1e9, torch.max)
+    nsy, nsx = TR._subtile_grid(intr, sub_px)
+    assert int(counts.sum()) > 0 and int((counts == 0).sum()) > 0
+    for b in range(B):
+        for s in range(nsy * nsx):
+            tx, ty = (s % nsx) * sub_px, (s // nsx) * sub_px
+            hit = [c for c in range(nc)
+                   if cx0[b, c] <= tx + sub_px - 1 and cx1[b, c] >= tx
+                   and cy0[b, c] <= ty + sub_px - 1 and cy1[b, c] >= ty]
+            rest = [c for c in range(nc) if c not in hit]
+            assert ids[b, s].tolist() == hit + rest
+            assert int(counts[b, s]) == len(hit)

@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("corner_score.cu", "lk_level.cu", "chunk_raster.cu",
-           "depth_edge.cu", "bilinear_remap.cu", "stage_mark.cu")
+           "tri_setup.cu", "depth_edge.cu", "bilinear_remap.cu",
+           "stage_mark.cu")
 BUILD_ROOT = _PKG.parent / "build" / "visma_tpu_torch"
 LIB_NAME = "libvisma_tpu_torch.so"
 NVCC_FLAGS = (
@@ -57,6 +58,10 @@ _SIGNATURES = {
     "vt_chunk_raster_frame": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     # (planes, ids, counts, out, B, nc, H, W, inv_near, inv_far, stream)
     "vt_chunk_raster_batched": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # (Cs, mesh or NULL, mesh64, M, T, poses, origins or NULL, planes, bbox,
+    #  ids, counts, B, nc, H, W, sub, fx, fy, cx, cy, z_near, z_far, stream)
+    "vt_tri_setup": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _I, _F, _F, _F, _F, _F, _F, _P),
     # (depth, out, B, H, W, lo, range, border, vec, stream)
     "vt_depth_edge": (_P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
     # (depth, occ or NULL, occ_stride, dt, dt_stride, obs, obs_stride,

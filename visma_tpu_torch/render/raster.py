@@ -13,9 +13,13 @@ subtile with an exact corner test (`subtile_cull_plain` is its plain
 version) and runs the pixel loop over the survivors only. The result is
 exact: every triangle is considered for every subtile it touches.
 
-Setup (`_planes_batched`, `_prep_chunks_all`) is plain PyTorch, batched
-over poses. The pair evaluations run in the hand-written kernel
-`csrc/chunk_raster.cu` on a CUDA tensor, through two wrappers:
+The setup of a call, batched over poses, is `triangle_setup`: on a CUDA
+tensor the hand-written kernel `csrc/tri_setup.cu` (one C call, two
+launches: the plane table straight from the mesh stack, then the chunk
+lists), on a CPU tensor its plain twin `_prep_chunks_all` (PyTorch ops on
+the gathered corners: `_planes_batched`, `_pack_chunks`). The pair
+evaluations run in the hand-written kernel `csrc/chunk_raster.cu` on a
+CUDA tensor, through two wrappers:
 
   chunk_raster_frame    one pose, 32-px subtiles (full frames); the port
                         of the TPU kernel raster.py::_chunk_raster_kernel
@@ -26,7 +30,7 @@ over poses. The pair evaluations run in the hand-written kernel
 On a CPU tensor both take `chunk_raster_plain` (all pixels x all chunks,
 the same plane arithmetic). Both return metric depth with +inf background,
 cropped to the frame: the reference's separate inverse-depth stitch is
-folded in.
+folded in. The `*_plain` rasterizers take both plain twins on any device.
 
 What exists in the reference only for the TPU and has no counterpart
 here: the (nc, nsub) transposed id layout and the 16-row padded plane
@@ -193,10 +197,92 @@ def _prep_chunks_all(C, poses_cw, intr: Intrinsics, chunk: int = CHUNK,
                      origins=None, sub_px: int = SUB_FRAME):
     """Kernel inputs for B poses: C (B,T,3,3) face corners -> (planes
     (B,nc,chunk,12), ids (B,nsub,nc) i32, counts (B,nsub) i32) over the
-    (ceil(rows/sub_px), ceil(cols/sub_px)) subtile grid, row-major."""
+    (ceil(rows/sub_px), ceil(cols/sub_px)) subtile grid, row-major. The
+    plain twin of `triangle_setup`'s kernel."""
     planes, _, x0, x1, y0, y1 = _planes_batched(C, poses_cw, intr,
                                                 origins=origins)
     return _pack_chunks(planes, x0, x1, y0, y1, intr, chunk, sub_px)
+
+
+def _check_setup_args(Cs, mesh_idx, poses_cw, origins) -> int:
+    """Raise unless Cs is a contiguous (M,T,3,3) float32 stack, poses_cw
+    (B,3,4) float32, mesh_idx None or (B,) int32 / int64, origins None or
+    (B,2) float32, all on one device. Returns B."""
+    name = "triangle_setup"
+    given = [t for t in (Cs, mesh_idx, poses_cw, origins) if t is not None]
+    if any(t.device != Cs.device for t in given):
+        raise ValueError(f"{name}: tensors must share one device, got "
+                         f"{[str(t.device) for t in given]}")
+    if Cs.dtype != torch.float32 or poses_cw.dtype != torch.float32 \
+            or (origins is not None and origins.dtype != torch.float32) \
+            or (mesh_idx is not None
+                and mesh_idx.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"{name}: Cs, poses and origins must be float32, "
+                         "mesh_idx int32 or int64")
+    B = poses_cw.shape[0] if poses_cw.dim() == 3 else -1
+    if Cs.dim() != 4 or tuple(Cs.shape[2:]) != (3, 3) \
+            or tuple(poses_cw.shape) != (B, 3, 4) \
+            or (mesh_idx is not None and tuple(mesh_idx.shape) != (B,)) \
+            or (origins is not None and tuple(origins.shape) != (B, 2)):
+        raise ValueError(
+            f"{name}: expected Cs (M,T,3,3), poses (B,3,4), mesh_idx (B,), "
+            f"origins (B,2); got {tuple(Cs.shape)}, {tuple(poses_cw.shape)}, "
+            f"{None if mesh_idx is None else tuple(mesh_idx.shape)}, "
+            f"{None if origins is None else tuple(origins.shape)}")
+    if not Cs.is_contiguous():
+        raise ValueError(f"{name}: the mesh stack must be contiguous")
+    return B
+
+
+def triangle_setup(Cs, mesh_idx, poses_cw, intr: Intrinsics, origins=None,
+                   sub_px: int = SUB_FRAME, chunk: int = CHUNK):
+    """Kernel inputs for B poses from a padded mesh stack: pose b renders
+    mesh mesh_idx[b] of Cs (M,T,3,3) face corners (mesh 0 for every pose
+    where mesh_idx is None) at poses_cw[b] (B,3,4), into the window whose
+    top-left is origins[b] (B,2), or the frame where origins is None ->
+    (planes (B,nc,chunk,12), ids (B,nsub,nc) i32, counts (B,nsub) i32),
+    what `_prep_chunks_all` returns for the gathered corners. A CPU tensor
+    takes `_prep_chunks_all`, the plain twin; a CUDA tensor launches
+    csrc/tri_setup.cu (one C call, two launches) or raises."""
+    B = _check_setup_args(Cs, mesh_idx, poses_cw, origins)
+    if Cs.device.type == "cpu":
+        C = Cs[0].expand(B, -1, -1, -1) if mesh_idx is None \
+            else Cs[mesh_idx.long()]
+        return _prep_chunks_all(C, poses_cw, intr, chunk, origins=origins,
+                                sub_px=sub_px)
+    _kernels.require_cuda("triangle_setup", Cs)
+    if chunk != CHUNK or sub_px not in (SUB_ROI, SUB_FRAME):
+        raise ValueError(f"triangle_setup: the kernel takes chunks of "
+                         f"{CHUNK} and subtiles of {SUB_ROI} or {SUB_FRAME}")
+    M, T = Cs.shape[:2]
+    if not 0 < B <= 65535 or T == 0:
+        raise ValueError("triangle_setup: 1 to 65535 poses of a non-empty "
+                         "mesh stack")
+    nc = -(-T // CHUNK)
+    nsy, nsx = _subtile_grid(intr, sub_px)
+    dev = Cs.device
+    planes = torch.empty((B, nc, CHUNK, 12), dtype=torch.float32, device=dev)
+    bbox = torch.empty((B, nc, 4), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, nsy * nsx, nc), dtype=torch.int32, device=dev)
+    counts = torch.empty((B, nsy * nsx), dtype=torch.int32, device=dev)
+    poses_cw = poses_cw.contiguous()
+    if mesh_idx is not None:
+        mesh_idx = mesh_idx.contiguous()
+    if origins is not None:
+        origins = origins.contiguous()
+    rc = _kernels.library().vt_tri_setup(
+        Cs.data_ptr(), None if mesh_idx is None else mesh_idx.data_ptr(),
+        int(mesh_idx is not None and mesh_idx.dtype == torch.int64), M, T,
+        poses_cw.data_ptr(), None if origins is None else origins.data_ptr(),
+        planes.data_ptr(), bbox.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+        B, nc, intr.rows, intr.cols, sub_px, intr.fx, intr.fy, intr.cx,
+        intr.cy, intr.z_near, intr.z_far, _kernels.stream_of(Cs))
+    _kernels.check(rc, "triangle_setup")
+    triangle_setup.launches += 1
+    return planes, ids, counts
+
+
+_kernels.counted(triangle_setup)
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +515,11 @@ def _roi_intr(intr: Intrinsics, roi) -> Intrinsics:
 # Rasterizers
 # ---------------------------------------------------------------------------
 
-def _raster_frames(C, poses_cw, intr: Intrinsics, chunk: int):
-    """Full-frame renders of B poses: batched setup, then one
-    `chunk_raster_frame` launch a pose."""
-    planes, ids, counts = _prep_chunks_all(C, poses_cw, intr, chunk,
-                                           sub_px=SUB_FRAME)
+def _raster_frames(Cs, mesh_idx, poses_cw, intr: Intrinsics, chunk: int):
+    """Full-frame renders of B poses of a mesh stack: batched setup
+    (`triangle_setup`), then one `chunk_raster_frame` launch a pose."""
+    planes, ids, counts = triangle_setup(Cs, mesh_idx, poses_cw, intr,
+                                         sub_px=SUB_FRAME, chunk=chunk)
     return torch.stack([
         chunk_raster_frame(planes[b:b + 1], ids[b:b + 1], counts[b:b + 1],
                            intr)
@@ -445,9 +531,7 @@ def rasterize_depth_chunked(V, F, poses_cw, intr: Intrinsics,
     """Batched exact rasterizer of one mesh: V (N,3), F (T,3), poses_cw
     (B,3,4) -> depth (B,H,W) f32, +inf background. Pass F through
     sort_faces_morton for speed (the result is the same for any order)."""
-    C = V[F.long()]
-    return _raster_frames(C[None].expand(poses_cw.shape[0], -1, -1, -1),
-                          poses_cw, intr, chunk)
+    return _raster_frames(V[F.long()][None], None, poses_cw, intr, chunk)
 
 
 def rasterize_depth_chunked_plain(V, F, poses_cw, intr: Intrinsics,
@@ -465,7 +549,7 @@ def rasterize_depth_chunked_multi(Cs, poses_cw, mesh_idx, intr: Intrinsics,
     """Chunked rasterizer over a stack of padded meshes: hypothesis b
     renders mesh mesh_idx[b] at poses_cw[b]. Cs (M,Tmax,3,3) is
     `face_corner_stack` of the padded stack as a tensor."""
-    return _raster_frames(Cs[mesh_idx.long()], poses_cw, intr, chunk)
+    return _raster_frames(Cs, mesh_idx, poses_cw, intr, chunk)
 
 
 def rasterize_depth_chunked_multi_plain(Cs, poses_cw, mesh_idx,
@@ -490,9 +574,9 @@ def rasterize_depth_chunked_multi_roi(Cs, poses_cw, mesh_idx, origins,
     screen-space translation), for all geometry, whether or not it fits
     the window."""
     roi_intr = _roi_intr(intr, roi)
-    planes, ids, counts = _prep_chunks_all(
-        Cs[mesh_idx.long()], poses_cw, roi_intr, chunk,
-        origins=origins.to(torch.float32), sub_px=SUB_ROI)
+    planes, ids, counts = triangle_setup(
+        Cs, mesh_idx, poses_cw, roi_intr, origins=origins.to(torch.float32),
+        sub_px=SUB_ROI, chunk=chunk)
     return chunk_raster_batched(planes, ids, counts, roi_intr)
 
 

@@ -6,7 +6,9 @@ se(3), renders and scores all of them in one batch, and refits the
 sampling distribution to the elite fraction. The batched form refines all
 objects jointly: per iteration one `chunk_raster_batched` launch renders
 every object's hypothesis windows (and one more the occluder windows),
-and one `edge_score` call scores them all: edges of the composited
+each after one `triangle_setup` call that builds its plane table and chunk
+lists (on the card the kernel csrc/tri_setup.cu, two launches), and one
+`edge_score` call scores them all: edges of the composited
 windows minus the occluders' own, chamfer and coverage, in one kernel.
 The loop stays on the device: nothing in it reads a value back to the
 host.

@@ -437,7 +437,7 @@ class SemanticMapper:
         `utils.trace` spans: `semantic.step` (the call), `semantic.spawn`,
         `semantic.retrieve` (inside a spawn) and `semantic.refine` here;
         inside the CEM the stages `cem.edt`, `cem.occluders`,
-        `cem.raster` (setup + chunk_raster_batched), `cem.score`
+        `cem.raster` (triangle_setup + chunk_raster_batched), `cem.score`
         (edge_score: edges, chamfer and coverage in one kernel call) and
         `cem.select` (sampling, the elite sort, the refit)."""
         with span("semantic.step"):

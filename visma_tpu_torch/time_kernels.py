@@ -19,7 +19,16 @@ same 20 calls captured in a CUDA graph and replayed, without the host):
                         objects' occluder, distance and evidence windows
   prep_chunks_all       the triangle setup and binning of one CEM
                         iteration's hypothesis batch: 96 ROI windows of
-                        256x384, 16-px subtiles (`_prep_chunks_all`)
+                        256x384, 16-px subtiles, by the PyTorch chain
+                        (`_prep_chunks_all` on the gathered corners);
+                        _graph: with the corner gather, replayed;
+                        _occluders / _frame (and _graph): the same at the
+                        iteration's 12 occluder windows and at one 500x960
+                        pose, 32-px subtiles
+  triangle_setup        the same three setups through `triangle_setup`
+                        (on the card csrc/tri_setup.cu; _occluders,
+                        _frame, and each _graph); left out where the
+                        checkout has no such function
   chunk_raster_batched  K4 on that batch
   chunk_raster_frame    K3 on one 500x960 pose
   bilinear_remap        K6 on the ingest path's call: 240 uint8 600x960
@@ -190,6 +199,28 @@ def main():
 
     planes, ids, counts = prep()
     out["prep_chunks_all_ms"] = cuda_ms(prep)
+    n = mean.shape[0]
+    oi = _others_index(n, dev)
+    occ_org = torch.repeat_interleave(_roi_origins(mean[:, :, 3], intr, ROI),
+                                      n - 1, dim=0)
+    setups = {"": (hyp, hyp_mi, hyp_org, roi_intr, rs.SUB_ROI),
+              "_occluders": (mean[oi], mi[oi], occ_org, roi_intr, rs.SUB_ROI),
+              "_frame": (mean[:1], mi[:1], None, intr, rs.SUB_FRAME)}
+    for key, (p, m, o, it, sub) in setups.items():
+        def chain(p=p, m=m, o=o, it=it, sub=sub):
+            return rs._prep_chunks_all(renderer.Cs[m], p, it, origins=o,
+                                       sub_px=sub)
+
+        if key:
+            out[f"prep_chunks_all{key}_ms"] = cuda_ms(chain)
+        out[f"prep_chunks_all{key}_graph_ms"] = graph_ms(chain)
+        setup = getattr(rs, "triangle_setup", None)
+        if setup is not None:
+            def kernel(p=p, m=m, o=o, it=it, sub=sub):
+                return setup(renderer.Cs, m, p, it, origins=o, sub_px=sub)
+
+            out[f"triangle_setup{key}_ms"] = cuda_ms(kernel)
+            out[f"triangle_setup{key}_graph_ms"] = graph_ms(kernel)
     depth = rs.chunk_raster_batched(planes, ids, counts, roi_intr)
     out["covered_pixels"] = int(torch.isfinite(depth).sum())
     out["chunk_raster_batched_ms"] = cuda_ms(
@@ -197,8 +228,6 @@ def main():
 
     # the score of the iteration: occluder windows of the other objects,
     # the scene's edges on this frame as the evidence
-    n = mean.shape[0]
-    oi = _others_index(n, dev)
     occ = rs.rasterize_depth_chunked_multi_roi(
         renderer.Cs, mean[oi], mi[oi],
         torch.repeat_interleave(_roi_origins(mean[:, :, 3], intr, ROI),

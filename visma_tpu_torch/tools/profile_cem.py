@@ -10,15 +10,18 @@ categories from a torch.profiler trace of three dispatches.
 Categories of the device events, in the order the replay ran them:
   raster  K4's kernel (`chunk_raster_kernel`, vt_chunk_raster_batched)
   score   the fused edge score's two kernels (vt_edge_score)
-  prep    the triangle setup before each K4 launch (the corner gather,
-          `_prep_chunks_all`: its elementwise ops, the sort, the cat): the
-          launches before K4 that equal the setup's, a render alone at the
+  prep    the triangle setup before each K4 launch (`triangle_setup`:
+          on the card csrc/tri_setup.cu's two launches): the launches
+          before K4 that equal the setup's, a render alone at the
           dispatch's shapes captured and replayed, its length held to the
           launches the host queues before K4 in an eager render
+          (`setup_launches`)
   other   the rest (the draws' transform, the EDT, the refit, copies)
 Every K4 must follow a whole setup and the traced dispatches must be
 alike, else the profile raises. Also prints the K4 and edge-score
-launches a dispatch, counted through the replays.
+launches a dispatch, counted through the replays, and on the card
+(`setup_ms`) the setup of each of the two renders of an iteration timed
+beside the PyTorch chain it replaced and beside K4.
 """
 from __future__ import annotations
 
@@ -87,31 +90,36 @@ RASTER = "chunk_raster_kernel"      # K4's device kernel (csrc/chunk_raster.cu)
 SCORE = "edge_score_"               # edge_score_tiles, edge_score_finish
 
 
+WARM_CALLS = 16     # calls of fn ahead of a trace's marker kernel
+
+
 def traced(fn, n: int = 1):
     """(device events, host launch calls) of n calls of fn: the device
     events as (name, us) in the order they ran, the host's calls that
-    queued them as names. Traced by `utils.trace.traced`: behind one call
-    of fn and a marker kernel (the profiler drops a trace's first device
-    records once a process has run for a while: 23 of the setup's 154
-    kernels in chip_smoke.py's full run, H100), the device events held to
-    the host's launches and the replayed graphs' nodes."""
+    queued them as names. Traced by `utils.trace.traced`: behind
+    WARM_CALLS calls of fn and a marker kernel (the profiler drops a
+    trace's first device records once a process has run for a while: 23
+    kernels in chip_smoke.py's full run, H100; a render alone, the
+    set-up's two launches and K4, makes a handful of records a call), the
+    device events held to the host's launches and the replayed graphs'
+    nodes."""
     from visma_tpu_torch.utils.trace import LAUNCH_API
     from visma_tpu_torch.utils.trace import traced as trace_of
 
-    t = trace_of(lambda: [fn() for _ in range(n)], warm=fn)
+    t = trace_of(lambda: [fn() for _ in range(n)],
+                 warm=lambda: [fn() for _ in range(WARM_CALLS)])
     return ([(name, b - a) for name, a, b in t.ops],
             [name for name, _, _ in t.host_events
              if name.startswith(LAUNCH_API)])
 
 
 def setup_sequences(mr, mi, poses, roi, samples: int) -> list:
-    """The device kernels the triangle setup (the corner gather and
-    `_prep_chunks_all` with its sort and cat) launches before K4 in the
-    two ROI renders of a CEM iteration: each render alone at the
-    dispatch's shapes (the n (n - 1) occluder windows, the n x samples
-    hypothesis windows; the GEMM a shape picks can differ), captured into
-    a CUDA graph as the dispatch is, and one replay traced: the name
-    sequences, longest first.
+    """The device kernels the triangle setup (`triangle_setup`) launches
+    before K4 in the two ROI renders of a CEM iteration: each render alone
+    at the dispatch's shapes (the n (n - 1) occluder windows, the n x
+    samples hypothesis windows), captured into a CUDA graph as the
+    dispatch is, and one replay traced: the name sequences, longest
+    first.
 
     Each is held to the host's count: the same render called eagerly
     queues as many launches before K4 as the replay ran kernels before it,
@@ -151,6 +159,38 @@ def setup_sequences(mr, mi, poses, roi, samples: int) -> list:
                 f"and the host queued {host_before} launches before K4")
         out.append(setup)
     return sorted(out, key=len, reverse=True)
+
+
+def setup_times(mr, mi, poses, roi, samples: int) -> dict:
+    """Device ms a call, 20 calls captured into one CUDA graph and replayed
+    (`time_kernels.graph_ms`), of the two ROI renders of a CEM iteration
+    at the dispatch's shapes (the n (n - 1) occluder windows, the n x
+    samples hypothesis windows): `triangle_setup`, the PyTorch chain it
+    replaced (the corner gather and `_prep_chunks_all`) and K4 on the
+    setup's tables."""
+    from visma_tpu_torch.render.raster import (
+        SUB_ROI, _prep_chunks_all, _roi_intr, chunk_raster_batched,
+        triangle_setup)
+    from visma_tpu_torch.semantic.cem import _roi_origins
+    from visma_tpu_torch.time_kernels import graph_ms
+
+    n = poses.shape[0]
+    intr = _roi_intr(mr.intr, roi)
+    out = {}
+    for name, reps in (("occluders", n - 1), ("hypotheses", samples)):
+        p = poses.repeat_interleave(reps, dim=0)
+        m = mi.repeat_interleave(reps)
+        org = _roi_origins(p[:, :, 3], mr.intr, roi)
+        tables = triangle_setup(mr.Cs, m, p, intr, origins=org,
+                                sub_px=SUB_ROI)
+        out[name] = {
+            "windows": p.shape[0],
+            "kernel_ms": graph_ms(lambda: triangle_setup(
+                mr.Cs, m, p, intr, origins=org, sub_px=SUB_ROI)),
+            "chain_ms": graph_ms(lambda: _prep_chunks_all(
+                mr.Cs[m], p, intr, origins=org, sub_px=SUB_ROI)),
+            "k4_ms": graph_ms(lambda: chunk_raster_batched(*tables, intr))}
+    return out
 
 
 def _same_op(name: str) -> str:
@@ -245,6 +285,9 @@ def profile_dispatch(iters: int, samples: int, sigma, roi, device,
         for k, v in sorted(t["categories_us"].items(), key=lambda kv: -kv[1]):
             log(f"  {k:8s} {v / t['dispatches'] / 1e3:8.4f} ms/dispatch "
                 f"{100 * v / max(t['total_us'], 1e-9):5.1f}%")
+    if device.type == "cuda":
+        out["setup_ms"] = setup_times(mr, mi, poses, tuple(roi), samples)
+        log(f"setup ms a call (graphed): {out['setup_ms']}")
     return out
 
 
