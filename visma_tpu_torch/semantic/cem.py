@@ -278,19 +278,21 @@ def retrieval_scores(mrenderer, roi, hyps, mi, org1, dt, em, box):
 
 def _retrieval_scores(Cs, intr, roi, hyps, mi, org1, dt, em, box):
     B = hyps.shape[0]
-    origins = org1[None].expand(B, 2)
-    d = rasterize_depth_chunked_multi_roi(Cs, hyps, mi, origins, intr, roi)
-    dt_w = _crop(dt, org1[None], roi)[0]
-    em_w = _crop(em, org1[None], roi)[0]
     dev = hyps.device
-    yy = org1[1] + torch.arange(roi[0], dtype=torch.float32,
-                                device=dev)[:, None]
-    xx = org1[0] + torch.arange(roi[1], dtype=torch.float32,
-                                device=dev)[None, :]
-    in_box = ((xx >= box[0]) & (xx < box[2])
-              & (yy >= box[1]) & (yy < box[3]))
-    return occlusion_aware_edge_score(
-        d, None, dt_w, torch.where(in_box, em_w, torch.zeros_like(em_w)))
+    with stage("retrieve", dev):
+        origins = org1[None].expand(B, 2)
+        d = rasterize_depth_chunked_multi_roi(Cs, hyps, mi, origins, intr,
+                                              roi)
+        dt_w = _crop(dt, org1[None], roi)[0]
+        em_w = _crop(em, org1[None], roi)[0]
+        yy = org1[1] + torch.arange(roi[0], dtype=torch.float32,
+                                    device=dev)[:, None]
+        xx = org1[0] + torch.arange(roi[1], dtype=torch.float32,
+                                    device=dev)[None, :]
+        in_box = ((xx >= box[0]) & (xx < box[2])
+                  & (yy >= box[1]) & (yy < box[3]))
+        return occlusion_aware_edge_score(
+            d, None, dt_w, torch.where(in_box, em_w, torch.zeros_like(em_w)))
 
 
 def retrieval_executor(mrenderer, roi, B: int):

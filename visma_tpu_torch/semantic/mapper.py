@@ -32,6 +32,7 @@ eagerly.
 from __future__ import annotations
 
 import json
+import operator
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -139,7 +140,6 @@ class SemanticMapper:
                                float(settled_sigma[1])))
         self.coverage_radius = int(coverage_radius)
         self.roi_spawn = bool(roi_spawn)
-        self.tracks: Dict[int, ObjectTrack] = {}
         self.mrenderer = MultiMeshRenderer(intr, device=self.device)
         self._mesh_aabb: Dict[str, tuple] = {}
         if mesh_db:
@@ -148,13 +148,34 @@ class SemanticMapper:
                 n: (np.asarray(V, np.float64).min(0),
                     np.asarray(V, np.float64).max(0))
                 for n, (V, _) in mesh_db.items()}
+        self.async_frames = int(async_frames)
+        self._pinned: Optional[torch.Tensor] = None
+        # work done since construction, counted on the host (reset keeps
+        # it): `cem_windows` is n x samples x iters of every CEM a step
+        # ran plus the hypotheses of every retrieval
+        self.counts = {"cem_windows": 0}
+        self._empty_map()
+
+    def _empty_map(self) -> None:
+        self.tracks: Dict[int, ObjectTrack] = {}
         self._next_id = 0
         self.history: List = []
-        self.async_frames = int(async_frames)
         self._dev: Optional[dict] = None   # device-resident track state
         self._frame_no = 0
-        self._pinned: Optional[torch.Tensor] = None
         self._gen: Optional[torch.Generator] = None   # the async steps'
+
+    def reset(self) -> None:
+        """Empty the map for a new sequence: the tracks, the track ids, the
+        history (a new list: one a caller holds keeps its packets,
+        finalized first), the device-resident state, the frame number and
+        the async steps' generator. The renderer and every executor it
+        caches stay, so a sequence mapped after `reset()` replays what
+        `warmup` or an earlier sequence captured, and gives the packets
+        of the same sequence on a new mapper, bit for bit. `finalize()`
+        waits for pending asynchronous steps: their pinned staging slots
+        are reused from frame 0 on."""
+        self.finalize()
+        self._empty_map()
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -173,44 +194,63 @@ class SemanticMapper:
         slot.copy_(torch.from_numpy(dG))
         return slot.to(self.device, non_blocking=True)
 
-    def warmup(self, n_objects: int) -> float:
-        """Build and load the kernels and make every executor of an
-        `n_objects` scene ready, as the reference's warmup compiles them
-        (visma_tpu/semantic/mapper.py:132-197): the CEM of both schedules
-        in the window with occluders rendered from poses, and, in the
-        window, the retrieval of one detection over the whole database x
-        retrieval_yaws. Graphed (see `graph`), each executor runs its
-        eager warm-up calls and is captured, so the first real frames
-        replay; eagerly, each runs once on an empty edge map. Returns
-        elapsed seconds; `captures` and `capture_ms` say what was
-        captured."""
+    def warmup(self, n_objects) -> float:
+        """Build and load the kernels and make the executors of a scene
+        ready, as the reference's warmup compiles them
+        (visma_tpu/semantic/mapper.py:132-197), and, in the window, the
+        retrieval of one detection over the whole database x
+        retrieval_yaws.
+
+        n_objects an int: the CEM of an `n_objects` scene in both
+        schedules, in the window with occluders rendered from poses. A
+        frame whose footprints are disjoint runs the occluder-free CEM,
+        which this leaves to be made on that frame.
+
+        n_objects an iterable of counts (a map that grows from empty): at
+        each count, every (schedule, window, occluder mode) that
+        `_step_sync` and `_step_async` can run with this mapper's
+        settings: the spawn and the settled schedule; in the window the
+        occluder modes "poses" and "none", in the full frame (no `roi`,
+        or fresh spawns without `roi_spawn`) "depths", with the exclusive
+        min of the occluders, and "none"; a single object "none" alone.
+        One executor shape a (count, schedule, window, mode), none padded.
+
+        Graphed (see `graph`), each executor runs its eager warm-up calls
+        and is captured, so the first real frames replay; eagerly, each
+        runs once on an empty edge map. Returns elapsed seconds;
+        `captures`, `capture_ms` and the runners' `pool_bytes` say what
+        was captured."""
         t0 = time.time()
-        n = int(n_objects)
+        try:
+            counts, shapes = [operator.index(n_objects)], self._warm_shapes
+        except TypeError:
+            counts, shapes = sorted({int(n) for n in n_objects}), \
+                self._step_shapes
         if self.device.type == "cuda":
             from visma_tpu_torch import _kernels
 
             _kernels.library()
-        if not self.mesh_db or n < 1:
+        counts = [n for n in counts if n >= 1]
+        if not self.mesh_db or not counts:
             return time.time() - t0
         calls = CallGraph.warmup + 1 if self.graphed else 1
-        poses = np.tile(np.eye(4, dtype=np.float32)[None, :3], (n, 1, 1))
-        poses[:, 2, 3] = self.depth_prior
-        poses[:, 0, 3] = 0.1 * np.arange(n)
         edge = torch.zeros((self.intr.rows, self.intr.cols),
                            dtype=torch.float32, device=self.device)
-        scheds = [(self.cem_iters, self.cem_samples, self.init_sigma)]
-        if self.settled_iters and self.settled_samples:
-            scheds.append((self.settled_iters, self.settled_samples,
-                           self.settled_sigma or self.init_sigma))
-        for iters, samples, sigma in scheds:
-            for _ in range(calls):
-                refine_pose_cem_batched(
-                    self.mrenderer, edge, poses, np.zeros(n, np.int32),
-                    iters=iters, samples=samples, init_sigma=sigma,
-                    roi=self.roi,
-                    occluder_poses=poses if self.roi is not None else None,
-                    radius=self.coverage_radius, device=self.device,
-                    graph=self.graphed)
+        for n in counts:
+            poses = np.tile(np.eye(4, dtype=np.float32)[None, :3], (n, 1, 1))
+            poses[:, 2, 3] = self.depth_prior
+            poses[:, 0, 3] = 0.1 * np.arange(n)
+            mi = np.zeros(n, np.int32)
+            for iters, samples, sigma, roi, mode in shapes(n):
+                for _ in range(calls):
+                    occ = (self._occluder_depths(poses, mi)
+                           if mode == "depths" else None)
+                    refine_pose_cem_batched(
+                        self.mrenderer, edge, poses, mi, iters=iters,
+                        samples=samples, init_sigma=sigma, roi=roi,
+                        occluder_poses=poses if mode == "poses" else None,
+                        occluder_depths=occ, radius=self.coverage_radius,
+                        device=self.device, graph=self.graphed)
         if self.roi is not None:
             # retrieve_shape's window branch
             roi = self.roi
@@ -226,6 +266,41 @@ class SemanticMapper:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
+
+    def _schedules(self) -> list:
+        """(iters, samples, sigma) of the spawn and the settled schedule."""
+        out = [(self.cem_iters, self.cem_samples, self.init_sigma)]
+        if self.settled_iters and self.settled_samples:
+            out.append((self.settled_iters, self.settled_samples,
+                        self.settled_sigma or self.init_sigma))
+        return out
+
+    def _warm_shapes(self, n: int) -> list:
+        """warmup(n)'s CEMs: both schedules, occluders from poses in the
+        window (none for one object or without a window)."""
+        mode = "poses" if self.roi is not None and n > 1 else "none"
+        return [(*s, self.roi, mode) for s in self._schedules()]
+
+    def _step_shapes(self, n: int) -> list:
+        """(iters, samples, sigma, roi, occluder mode) of every CEM a step
+        with n tracks can run (see `warmup`)."""
+        rois = [self.roi] if self.roi is not None and self.roi_spawn \
+            else [None, self.roi] if self.roi is not None else [None]
+        out = []
+        for roi in rois:
+            modes = ("none",) if n == 1 else \
+                ("poses", "none") if roi is not None else ("depths", "none")
+            out += [(*s, roi, m) for s in self._schedules() for m in modes]
+        return out
+
+    def _occluder_depths(self, poses_cm, mesh_idx) -> torch.Tensor:
+        """Per track the full-frame min depth of the other tracks."""
+        args = (self._f32(poses_cm),
+                torch.as_tensor(mesh_idx, device=self.device))
+        return (exclusive_min_executor(self.mrenderer)(*args)
+                if self.graphed else
+                _exclusive_min_depths(self.mrenderer.Cs, *args,
+                                      self.mrenderer.intr))
 
     def graphs(self) -> dict:
         """The executors' runners on this mapper's renderer
@@ -372,6 +447,7 @@ class SemanticMapper:
         y1 = int(np.clip(bbox.bottom_right_y + my, 0, H))
         idxs = np.array([self.mrenderer.index(n) for n in cands], np.int64)
         Mc = len(cands)
+        self.counts["cem_windows"] += len(hyps)
         mi = torch.as_tensor(np.repeat(idxs, B), device=self.device)
         hyps_d = self._f32(hyps)
         if self.roi is not None:
@@ -434,12 +510,16 @@ class SemanticMapper:
         the right shape on the mapper's device passes through as it is
         (the production path: depth_edge output stays on the card).
 
-        `utils.trace` spans: `semantic.step` (the call), `semantic.spawn`,
-        `semantic.retrieve` (inside a spawn) and `semantic.refine` here;
-        inside the CEM the stages `cem.edt`, `cem.occluders`,
+        `utils.trace` spans: `semantic.step` (the call),
+        `semantic.dedup` (each detection's `_covered` test),
+        `semantic.spawn`, `semantic.retrieve` (inside a spawn; the stage
+        `retrieve` around its device work), `semantic.refine` and, on the
+        sync path, `semantic.readback` (the refined poses and scores read
+        back) here; inside the CEM the stages `cem.edt`, `cem.occluders`,
         `cem.raster` (triangle_setup + chunk_raster_batched), `cem.score`
         (edge_score: edges, chamfer and coverage in one kernel call) and
-        `cem.select` (sampling, the elite sort, the refit)."""
+        `cem.select` (sampling, the elite sort, the refit). `counts`
+        counts the CEM's hypothesis windows on the host."""
         with span("semantic.step"):
             self._step(gwc, edge_map, bboxes)
 
@@ -465,7 +545,9 @@ class SemanticMapper:
             self._sync_dev()
             dt = None
             for bb in bboxes.bounding_boxes:
-                if not self._covered(bb, gwc):
+                with span("semantic.dedup"):
+                    covered = self._covered(bb, gwc)
+                if not covered:
                     if (dt is None
                             and (bb.shape_id or bb.class_name)
                             not in self.mesh_db):
@@ -494,6 +576,7 @@ class SemanticMapper:
                          and roi is not None and bboxes is None
                          and self._dev is not None
                          and self._dev["oids"] == oids)
+            self.counts["cem_windows"] += len(tracks) * samples * iters
             with span("semantic.refine"):
                 if can_async:
                     self._step_async(tracks, G, G_cw, edge_map, iters,
@@ -527,12 +610,7 @@ class SemanticMapper:
         elif need_occ:
             # full-frame mode (fresh spawns): all current depths + the
             # per-track exclusive min over the others
-            args = (self._f32(poses_cm),
-                    torch.as_tensor(mesh_idx, device=self.device))
-            occ = (exclusive_min_executor(self.mrenderer)(*args)
-                   if self.graphed else
-                   _exclusive_min_depths(self.mrenderer.Cs, *args,
-                                         self.mrenderer.intr))
+            occ = self._occluder_depths(poses_cm, mesh_idx)
         # disjoint screen footprints: no occluder work at all
 
         refined_dev, scores_dev = refine_pose_cem_batched(
@@ -542,8 +620,9 @@ class SemanticMapper:
             occluder_depths=occ, roi=roi, occluder_poses=occ_poses,
             radius=self.coverage_radius, device=self.device,
             graph=self.graphed)
-        refined = refined_dev.cpu().numpy()
-        scores = scores_dev.cpu().numpy()
+        with span("semantic.readback"):
+            refined = refined_dev.cpu().numpy()
+            scores = scores_dev.cpu().numpy()
         for i, tr in enumerate(tracks):
             T_cm = np.eye(4)
             T_cm[:3, :4] = refined[i]

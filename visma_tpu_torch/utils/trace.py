@@ -29,7 +29,8 @@ The spans of the port, and the stages (`STAGES`):
   vio.init, vio.run, vio.step, vio.pose     pipeline.py
   vio.undistort                             image/remap.py (K6's call)
   msckf.run_batched                         filter/msckf.py
-  semantic.step, .spawn, .retrieve, .refine semantic/mapper.py
+  semantic.step, .dedup, .spawn, .retrieve, .refine, .readback
+                                            semantic/mapper.py
   graph.copy_in, graph.launch, graph.copy_out, graph.capture
                                             utils/graphs.py
   host.gc                                   the garbage collector
@@ -37,6 +38,7 @@ The spans of the port, and the stages (`STAGES`):
                                             Msckf's batched step
   stages cem.edt, cem.occluders, cem.raster, cem.score, cem.select
                                             semantic/cem.py
+  stage retrieve (a retrieval's device work) semantic/cem.py
 
 **Device traces.** torch.profiler drops the first device records of a
 trace once a process has run for a while (none in a fresh process; on an
@@ -80,7 +82,7 @@ ROWS = 1 << 17                         # spans kept, the newest
 rows = collections.deque(maxlen=ROWS)  # (name, start ns, end ns)
 
 STAGES = ("frontend", "filter", "cem.edt", "cem.occluders", "cem.raster",
-          "cem.score", "cem.select")
+          "cem.score", "cem.select", "retrieve")
 _STAGE_ID = {name: i for i, name in enumerate(STAGES)}
 # mark id -> (stage, "begin" or "end"): stage i begins with 2i, ends 2i+1
 MARKS = {2 * i + end: (name, ("begin", "end")[end])
